@@ -2,7 +2,7 @@
 
 The reference's turn-taking prototype (soccer_alternating_env.py) exposes
 a P table and was meant to be solvable; this demo exercises the full
-TPU-native version of that capability:
+batched, on-device version of that capability:
 
 1. build the tabular dynamics (`build_alt_tables`, vectorized);
 2. solve the zero-sum turn game EXACTLY with turn-based minimax VI
@@ -36,8 +36,8 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="shorter learner run (CI smoke)")
     ap.add_argument("--fused", action="store_true",
-                    help="train with the fused pallas kernel "
-                         "(ops/altq_kernel; meant for the real chip)")
+                    help="train with the fused Triton kernel "
+                         "(ops/altq_kernel; needs a GPU)")
     args = ap.parse_args()
 
     cfg = EnvConfig(width=5, height=4, slip_prob=0.2)

@@ -2,8 +2,7 @@
 (soccer_simultaneous_env.py:499-613): build the 5x4 slip-0.2 env with a
 frozen random player B, solve it with VI / PI / MPI (k=1 and k=10^7),
 assert all four agree, then play 1000 episodes with the VI policy and
-report average reward / steps — plus build/solve timings, which is where
-the TPU-native rebuild's speedups show.
+report average reward / steps — plus build/solve timings.
 
 Run: python examples/demo.py
 """

@@ -1,4 +1,4 @@
-"""gym_soccer_tpu — a TPU-native re-engineering of the Littman94
+"""gym_soccer_tpu — a batched JAX re-engineering of the Littman94
 grid-soccer Markov game (reference: mimoralea/gym-soccer-littman94).
 
 Layers:

@@ -1,7 +1,7 @@
 """On-device tabular self-play learners, fused with batched rollouts.
 
 The reference has NO learners (its solution layer is DP planning over the
-exposed tables; SURVEY.md §2.10a requires these as TPU-native additions):
+exposed tables; SURVEY.md §2.10a requires these as batched additions):
 
 * **Independent Q-learning** — two Q-tables (player A maximizes r, player B
   maximizes -r), epsilon-greedy behavior, batched TD(0) updates applied as
@@ -10,7 +10,7 @@ exposed tables; SURVEY.md §2.10a requires these as TPU-native additions):
 
 * **Minimax-Q** (Littman 1994 — the algorithm this environment was built
   for) — joint table Q[s, aa, ab] for player A; V and mixed strategies come
-  from solving the 5x5 zero-sum matrix game at every state.  TPU-idiomatic
+  from solving the 5x5 zero-sum matrix game at every state.  Batched
   schedule: transitions stream into Q via scatter-adds, and the per-state
   game solves are batched over ALL nS states at once every `resolve_every`
   steps (761 simultaneous 5x5 solves are one tiny fused kernel) instead of
@@ -81,6 +81,18 @@ def _multigrid_engine(codec: multigrid.MultiGridCodec) -> _Engine:
 # Zero-sum matrix-game solver (batched)
 # ----------------------------------------------------------------------
 
+def _lsum(x: jax.Array) -> jax.Array:
+    """Sum over the last axis, left to right, as elementwise adds: every
+    game's arithmetic is then the same sequence of f32 operations for any
+    batch shape (a dot or reduce may be compiled differently per shape on
+    a GPU), so a state-sharded solve equals the replicated one bit for
+    bit, and no product runs in TF32."""
+    s = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k]
+    return s
+
+
 def solve_matrix_games(M: jax.Array, iters: int = 100
                        ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Approximately solve max_x min_y x^T M y for a batch of zero-sum
@@ -92,6 +104,12 @@ def solve_matrix_games(M: jax.Array, iters: int = 100
 
     Returns (value, x, y): the game values [...] and the averaged mixed
     strategies for the row maximizer / column minimizer [..., nA].
+
+    The contractions are explicit f32 multiply-adds (`_lsum`), not
+    einsums: on a GPU a default f32 einsum may run in TF32 (~1e-3
+    relative), as coarse as the exploitability the trainers are held to
+    (<= 0.010 at a ~0.002 floor), and its summation order may change with
+    the batch shape.
     """
     nA = M.shape[-1]
     shape = M.shape[:-2]
@@ -99,7 +117,7 @@ def solve_matrix_games(M: jax.Array, iters: int = 100
     uniform = jnp.full(shape + (nA,), 1.0 / nA, dt)
 
     def normalize(r):
-        s = r.sum(-1, keepdims=True)
+        s = _lsum(r)[..., None]
         return jnp.where(s > 0, r / jnp.maximum(s, 1e-30), uniform)
 
     def body(carry, t):
@@ -107,9 +125,9 @@ def solve_matrix_games(M: jax.Array, iters: int = 100
         x = normalize(rx)
         y = normalize(ry)
         # instantaneous payoffs
-        my = jnp.einsum('...ij,...j->...i', M, y)     # row payoffs vs y
-        xm = jnp.einsum('...i,...ij->...j', x, M)     # col payoffs vs x
-        vx = jnp.einsum('...i,...i->...', x, my)[..., None]
+        my = _lsum(M * y[..., None, :])               # row payoffs vs y
+        xm = _lsum(jnp.swapaxes(M, -1, -2) * x[..., None, :])  # col vs x
+        vx = _lsum(x * my)[..., None]
         # RM+: truncate cumulative regrets at zero
         rx = jnp.maximum(rx + (my - vx), 0.0)
         ry = jnp.maximum(ry + (vx - xm), 0.0)
@@ -119,9 +137,9 @@ def solve_matrix_games(M: jax.Array, iters: int = 100
     zeros = jnp.zeros(shape + (nA,), dt)
     (rx, ry, sx, sy), _ = jax.lax.scan(
         body, (zeros, zeros, zeros, zeros), jnp.arange(iters))
-    x = sx / sx.sum(-1, keepdims=True)
-    y = sy / sy.sum(-1, keepdims=True)
-    value = jnp.einsum('...i,...ij,...j->...', x, M, y)
+    x = sx / _lsum(sx)[..., None]
+    y = sy / _lsum(sy)[..., None]
+    value = _lsum(x * _lsum(M * y[..., None, :]))
     return value, x, y
 
 

@@ -1,8 +1,9 @@
 """Batched, jit/vmap-native environment engine.
 
-This is the TPU replacement for the reference's single-env Python step loop
-(soccer_simultaneous_env.py:375-424): pure functions over struct-of-arrays
-int32 state, stepping thousands of env instances in lockstep on one chip,
+This is the batched replacement for the reference's single-env Python step
+loop (soccer_simultaneous_env.py:375-424): pure functions over
+struct-of-arrays int32 state, stepping thousands of env instances in
+lockstep on one device,
 with `lax.scan` rollouts and automatic reset-on-termination.
 
 Design (SURVEY.md §7.1): *rules kernel first, tables second* — transitions
@@ -211,9 +212,7 @@ def _slip_variant(cfg: EnvConfig, u: jax.Array) -> jax.Array:
 def _slipped_move_arith(a: jax.Array, variant: jax.Array):
     """(dcol, drow) of action ``a`` under slip ``variant``, computed
     arithmetically.  Equivalent to indexing _MOVE_VARIANTS[a, variant] but
-    with no gather: on TPU each gather is a separate un-fusable kernel
-    whose launch overhead dominates this tiny per-step workload (removing
-    them takes the scan engine from ~16M to >200M steps/s)."""
+    with no gather, so the whole step stays one elementwise fusion."""
     mc0 = (a == 3).astype(jnp.int32) - (a == 4).astype(jnp.int32)
     mr0 = (a == 2).astype(jnp.int32) - (a == 1).astype(jnp.int32)
     # variant 1 -> (-mr0, mc0); variant 2 -> (mr0, -mc0)  (orthogonal_moves)
@@ -342,8 +341,8 @@ def rollout_stats(cfg: EnvConfig, state: EnvState, policy_fn, n_steps: int,
     per env per 1000 steps, which dominates its runtime at large B (the
     engine computes transitions faster than it can journal them).  When
     only aggregates are needed (throughput benches, evaluation win rates),
-    this variant keeps everything in registers/VMEM like the pallas kernel
-    does.  Returns (final_state, RolloutStats)."""
+    this variant keeps the per-step outputs out of device memory, like the
+    fused rollouts (ops/step_kernel.py).  Returns (final_state, RolloutStats)."""
     def body(carry, i):
         st, acc = carry
         obs = observe(cfg, st)

@@ -1,5 +1,5 @@
-"""On-device MT19937: the reference's RNG, vectorized on TPU in pure
-integer ops.
+"""On-device MT19937: the reference's RNG, vectorized in pure integer
+ops.
 
 core/parity.py's default stream source is host-side (numpy RandomState /
 the native C++ generator).  This module computes the SAME bit-exact
@@ -13,8 +13,8 @@ host involvement at all:
 * the twist is the 3-phase vectorized form (the last M entries of the
   in-place loop read already-updated words, so a single roll is NOT
   equivalent — phases split at the dependency boundaries);
-* `random_sample` doubles are (a>>5)*2^26 + (b>>6) over 2^53; since TPU
-  has no float64, the double's IEEE-754 BIT PATTERN is constructed
+* `random_sample` doubles are (a>>5)*2^26 + (b>>6) over 2^53; with no
+  float64 arithmetic, the double's IEEE-754 BIT PATTERN is constructed
   directly with integer ops (bit-length via branchless binary search,
   exponent/mantissa assembly) as the (hi, lo) uint32 pair the parity
   kernel compares against.

@@ -193,8 +193,8 @@ def step(st: MultiGridState, actions_a: jax.Array, actions_b: jax.Array,
     var = lambda uu: jnp.where(uu < 1.0 - q,
                                0, jnp.where(uu < 1.0 - q * 0.5, 1, 2)
                                ).astype(jnp.int32)
-    # arithmetic moves/selects: gathers compile to separate un-fusable TPU
-    # kernels whose launch cost dominates this workload (see core/batch.py)
+    # arithmetic moves/selects instead of table gathers (see
+    # core/batch._slipped_move_arith)
     mca, mra = corebatch._slipped_move_arith(actions_a, var(u[:, 0]))
     mcb, mrb = corebatch._slipped_move_arith(actions_b, var(u[:, 1]))
 

@@ -12,8 +12,8 @@ selects the first transition whose float64 cumulative sum exceeds it
   transition tensors (bit-identical to the reference's, see core/tables);
 * the threshold comparison done in pure integer ops: non-negative IEEE-754
   doubles order identically to their 64-bit patterns, so ``cum > u`` is a
-  lexicographic (hi, lo) uint32 compare.  **No float64 hardware needed** —
-  the same kernel is exact on TPU (which has no f64) and CPU alike
+  lexicographic (hi, lo) uint32 compare.  **No float64 arithmetic
+  needed** — the same code is exact on any device
   (SURVEY.md §7.3.1 option ii).
 
 A "parity step" mirrors the reference driver loop per instance: if the env
@@ -50,9 +50,7 @@ class ParityTables(NamedTuple):
     """Host-side (numpy) arrays; inlined as constants under jit.
 
     The per-slot data is PACKED into two tensors so a parity step costs 3
-    device gathers instead of 8 — on TPU each gather is a separate kernel
-    whose launch overhead dominates this workload (same diagnosis as the
-    batch engine's gather-free step):
+    device gathers instead of 8:
 
     * ``cum_pair`` [nS, R, 36, 2]: float64 cumulative-sum thresholds as
       (hi, lo) uint32 bit-pattern words, fetched by (state, row);
@@ -313,9 +311,8 @@ def parity_event_step(cfg: EnvConfig, pt: ParityTables, state: ParityState,
     (reference reset(), :410-424), all others on the transition
     categorical (step(), :394-396).  Per-lane draw ORDER is identical to
     the reference's reset/step/step/... sequence, but every lane's stream
-    cursor advances in lockstep — the property the fused pallas parity
-    kernel (ops/parity_kernel.py) is built on, where it keeps thousands
-    of on-chip MT19937 generators position-synchronized.
+    cursor advances in lockstep, which keeps thousands of per-lane
+    MT19937 streams position-synchronized.
     """
     nr = state.needs_reset
 

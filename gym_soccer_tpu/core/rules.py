@@ -4,7 +4,7 @@ Single source of truth for the game semantics, written against an array
 namespace ``xp`` that may be either ``numpy`` (vectorized host-side table
 building) or ``jax.numpy`` (jitted on-device stepping).  Everything is
 elementwise/broadcast — no data-dependent Python control flow — so the same
-code vmaps over thousands of env instances on TPU.
+code vmaps over thousands of env instances on a device.
 
 Semantics replicated exactly from the reference (cited lines are
 /root/reference/gym_soccer/envs/soccer_simultaneous_env.py):
@@ -218,8 +218,8 @@ def cellpair_encode(xp, xa, ya, xb, yb, p, cfg: EnvConfig):
     """Compact closed-form state code over (valid cell A, valid cell B,
     possession) with the always-true A != B constraint folded in — 2.2x
     smaller than the raw mixed-radix space for 5x4 (1104 vs 1568 codes),
-    which directly shrinks the one-hot matmuls of the fused learner kernel
-    and lets 11x7 (nS=11705) fit its VMEM tables.  Valid for every state
+    which directly shrinks the fused learner chunks' tables.  Valid for
+    every state
     the rules kernel produces (players never co-locate; goal columns only
     entered on goal rows)."""
     nc = n_cells(cfg)

@@ -286,7 +286,7 @@ def alt_value_iteration_jax(t_prob, t_next_dense, t_reward, t_done, turn,
                             max_sweeps: int = 20_000):
     """Jitted turn-based minimax VI fixpoint (lax.while_loop), the
     on-device twin of `alt_value_iteration` (same sweep; dtype follows
-    `t_prob` — float32 on TPU, use x64 arrays on CPU for tight thetas).
+    `t_prob` — float32 by default, use x64 arrays for tight thetas).
 
     Returns (pi, V, Q, sweeps) with ``pi[s]`` the mover's action."""
     dt = t_prob.dtype

@@ -1,7 +1,7 @@
 """Native (C++) host components, loaded via ctypes with transparent
 build-on-first-use and pure-Python fallbacks.
 
-The TPU compute path is JAX/XLA/pallas; these cover host-side work the
+The device compute path is JAX/XLA/Pallas; these cover host-side work the
 Python interpreter is slow at:
 
 * ``mt19937_streams`` — threaded batched MT19937 parity stream generator

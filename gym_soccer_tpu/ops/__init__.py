@@ -1,5 +1,4 @@
-"""Low-level device kernels (pallas).
-
-The generic XLA path (core/batch.py) already exceeds the 10M steps/s
-target; kernels here push toward speed-of-light.  See step_kernel.py.
+"""Fused per-lane device loops (ops/lane_loop.py): each runs as a
+Pallas-Triton kernel or as its plain XLA twin.  See step_kernel.py for
+the rollouts and learner_kernel.py for the training chunks.
 """

@@ -1,34 +1,33 @@
-"""Fused pallas Q-learner for the ALTERNATING-turn game.
+"""Fused Q-learner chunks for the ALTERNATING-turn game.
 
-The XLA alternating learner (agents/learners.altq_train) pays the generic
-engine's per-step dispatch/gather overhead (~16M env-steps/s).  This
-kernel runs whole act->step->TD chunks on-chip, the turn-based twin of
-ops/learner_kernel:
+The XLA alternating learner (agents/learners.altq_train) steps, selects
+and updates as separate array programs per step.  Here whole
+act -> step -> TD chunks run per lane on the lane loop
+(ops/lane_loop.py), the turn-based twin of ops/learner_kernel:
 
-* the Q table is packed into one VMEM matrix M [spc, 128] bfloat16
-  indexed by the COMPACT cellpair code (core/rules.cellpair_encode);
-  the turn bit selects COLUMNS, not rows — A-to-move Q lives in columns
-  0-9, B-to-move Q in 10-19 — so the row space is identical to the
-  simultaneous learner's and 11x7 (nS=11705) still fits VMEM;
-* ONE gather matmul per step (learner_kernel.make_gather) fetches the
-  mover's Q row, which serves BOTH action selection (eps-greedy argmax
-  for A / argmin for B — Q is A-perspective) and the bootstrap value
-  V(s') = max_a Q[s'] at A-to-move states, min_a at B-to-move states
-  that the PREVIOUS step's TD was waiting for (pipelined TD retirement,
-  terminated lanes masked by cont=0);
-* TD sums and visit counts accumulate into acc [spc, 128] f32 via
-  one_hot^T matmuls (learner_kernel.make_scatter), with the column
-  block chosen by the turn of the updated state;
-* the env transition is ops/step_kernel.alt_transition_core — the same
-  branchless single-mover rules and counter PRNG as the 18B-ticks/s
-  alternating rollout kernel.
+* the Q table sits in one f32 M [n_codes, M_COLS] indexed by the
+  TURNLESS compact cellpair code (core/rules.cellpair_encode); the turn
+  selects COLUMNS -- A-to-move Q in columns 0-4, B-to-move Q in 5-9 --
+  so the row space is the simultaneous learner's;
+* one row read per step fetches the mover's Q, which serves BOTH action
+  selection (eps-greedy argmax for A / argmin for B -- Q is
+  A-perspective) and the bootstrap value V(s') = max_a Q[s'] at
+  A-to-move states, min_a at B-to-move states, that the PREVIOUS step's
+  TD was waiting for (pipelined TD retirement, terminated lanes masked
+  by cont=0);
+* with M frozen in-chunk, each lane accumulates the Bellman RESIDUAL
+  r + gamma*V(s') - V(s) and a visit count per (state, turn, action)
+  cell in the exact int32 fixed-point accumulator
+  (learner_kernel.scatter_residual); the between-chunk update completes
+  the TD with cnt * (V - q[s, a]);
+* the env transition is ops/step_kernel.alt_transition_core -- the same
+  branchless single-mover rules and counter PRNG as the alternating
+  rollout.
 
-M (and therefore the TD baseline) is FROZEN within a chunk; the wrapper
-(`fused_altq_train`) applies the count-normalized Q update between
-chunks.  Turn alternation makes the update LP-free (no matrix-game
-solve): the fixpoint of the max/min backup is the exact minimax value
-of `envs.soccer_alternating_env.alt_value_iteration` — Q-learning on
-the turn-based minimax Bellman operator, like agents/learners.altq_step
+Turn alternation makes the update LP-free (no matrix-game solve): the
+fixpoint of the max/min backup is the exact minimax value of
+`envs.soccer_alternating_env.alt_value_iteration` -- Q-learning on the
+turn-based minimax Bellman operator, like agents/learners.altq_step
 (reference capability signal: soccer_alternating_env.py:100-200).
 """
 from __future__ import annotations
@@ -38,290 +37,63 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import EnvConfig, N_ACTIONS
+from . import lane_loop as ll
 from . import step_kernel as sk
-from .learner_kernel import (LANES, RB, RB_SLABBED, SLAB_MAX, make_gather,
-                             make_scatter, spc)
-
-# M column layout.  Q is double-bf16 (hi = bf16 rounding, lo = residual;
-# see the precision note in ops/learner_kernel.py) and split by the turn
-# of the state: the row is the TURNLESS cellpair code, the column block
-# is the mover.
-COL_QA, COL_QA_LO = 0, 5
-COL_QB, COL_QB_LO = 10, 15
-# acc column layout: per-action TD sums and visit counts, split by turn.
-ACC_TD_A, ACC_TD_B = 0, 8
-ACC_CNT_A, ACC_CNT_B = 16, 24
-
-# PACKED layout (default; see ops/learner_kernel's PACKED comment): a
-# turnless cellpair needs 20 M columns (both turns' q hi/lo) and 20
-# accumulator columns (td + cnt per turn), so GP_T = 6 cellpairs share
-# each 128-wide row on both sides — 6x fewer gather/scatter matmul
-# rows.  The kernel accumulates Bellman RESIDUALS (r + gamma*V(s') -
-# V(s), V = the mover's max/min from the acting gather) and the host
-# completes the TD with the exact cnt * (V - q[s, a]) term.
-GP_T, GCOLS_T = 6, 20
-TACC_TD, TACC_CNT = 0, 5        # within a 10-col turn block (B at +10)
+from .learner_kernel import (LANES, M_COLS, decode_acc, n_codes, run_chunk,
+                             scatter_residual)
 
 
-def _altq_kernel(smem_ref, m_ref, ra_ref, ca_ref, rb_ref, cb_ref,
-                 p_ref, turn_ref, t_ref,
-                 ora, oca, orb, ocb, op, oturn, ot, acc_ref, stats_ref,
-                 *, cfg: EnvConfig, n_steps: int, q_int: int,
-                 gamma: float, rb: int):
-    """Block-major fused act/step/TD loop for the alternating game.
-
-    Identical pipelining to learner_kernel._learner_kernel: step i's TD
-    needs V(s_{i+1}), and step i+1's gather fetches exactly that state's
-    Q row, so each TD retires during the NEXT step's gather (one gather
-    matmul per step), with a single trailing gather for the last step."""
+def _altq_body(cfg: EnvConfig, n_steps: int, gamma: float):
+    """Per-lane act/step/TD loop for the alternating game.  Accumulator
+    cells: (code * 2 + turn) * 5 + a."""
     from ..core import rules
-    RBk = rb
-    seed = smem_ref[0].astype(jnp.uint32)
-    eps_int = smem_ref[1]            # exploration threshold on u16 draws
-    off = smem_ref[2]                # absolute step offset (chained seeds)
-    R = ra_ref.shape[0]
-    n_blocks = R // RBk
-    SP = m_ref.shape[0]
-    SLAB = SP if SP <= 2 * SLAB_MAX else SLAB_MAX
-    n_slabs = SP // SLAB
-    blk_shape = (RBk, LANES)
+    q_int = int(round(cfg.slip_prob * 65536))
 
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    rows_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 0)
-    cols_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 1)
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, blk_shape + (LANES,), 2)
-    gamma_f = jnp.float32(gamma)
+    def body(ctx, lanes):
+        seed = ctx.scalar(0).astype(jnp.uint32)
+        eps_int = ctx.scalar(1)      # exploration threshold on u16 draws
+        off = ctx.scalar(2)          # absolute step offset (chained seeds)
+        gamma_f = jnp.float32(gamma)
 
-    gather_rows = make_gather(m_ref, SLAB, n_slabs, RBk)
-    scatter_add = make_scatter(acc_ref, SLAB, n_slabs, RBk, blk_shape)
+        def mover_q(code, turn):
+            return [ctx.gather(0, code * M_COLS + turn * N_ACTIONS + k)
+                    for k in range(N_ACTIONS)]
 
-    def bounds(cp):
-        if n_slabs == 1:
-            return None
-        return jnp.min(cp) // SLAB, jnp.max(cp) // SLAB + 1
-
-    def col(pre, c):
-        return pre[:, c, :]
-
-    def mover_q(pre, turn):
-        """The 5 Q values of the state's mover (A columns at turn 0,
-        B columns at turn 1), hi+lo recombined."""
-        is_a = turn == 0
-        return [jnp.where(is_a,
-                          col(pre, COL_QA + k) + col(pre, COL_QA_LO + k),
-                          col(pre, COL_QB + k) + col(pre, COL_QB_LO + k))
-                for k in range(N_ACTIONS)]
-
-    def retire(qs, turn, pend):
-        """Scatter the previous step's TD using THIS state's bootstrap:
-        V = max_a Q (A to move) / min_a Q (B to move), A-perspective."""
-        cp, td_col, cnt_col, r, cont, q_cur, valid = pend
-        vmax, vmin = qs[0], qs[0]
-        for k in range(1, N_ACTIONS):
-            vmax = jnp.maximum(vmax, qs[k])
-            vmin = jnp.minimum(vmin, qs[k])
-        v_here = jnp.where(turn == 0, vmax, vmin)
-        td = r + cont * v_here - q_cur
-        X = (((c_iota == td_col[..., None]).astype(jnp.float32)
-              * td[..., None]
-              + (c_iota == cnt_col[..., None]).astype(jnp.float32))
-             * valid[..., None]).astype(jnp.bfloat16)
-        scatter_add(cp, X, bounds(cp))
-
-    def block(blk, carry0):
-        sl = pl.ds(blk * RBk, RBk)
-        lane = ((blk.astype(jnp.uint32) * RBk + rows_iota)
-                * jnp.uint32(LANES) + cols_iota)
-        zi = jnp.zeros(blk_shape, jnp.int32)
-        zf = jnp.zeros(blk_shape, jnp.float32)
-
-        def step(i, c):
-            (ra, ca, rb, cb, p, turn, t, pend,
-             rew_acc, goal_acc, trunc_acc) = c
-            bits0 = sk._random_word(seed, i + off, 0, lane)
-            bits1 = sk._random_word(seed, i + off, 1, lane)
-            bits2 = sk._random_word(seed, i + off, 2, lane)
-
-            cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-            pre = gather_rows(cp, bounds(cp))
-            qs = mover_q(pre, turn)
-            retire(qs, turn, pend)
-
-            # eps-greedy mover action: A maximizes, B minimizes (the
-            # table is A-perspective), both over the SAME gathered row.
-            sgn = jnp.where(turn == 0, 1.0, -1.0)
-            best = jnp.zeros(blk_shape, jnp.int32)
-            bestv = sgn * qs[0]
+        def minimax_v(qs, turn):
+            vmax, vmin = qs[0], qs[0]
             for k in range(1, N_ACTIONS):
-                sc = sgn * qs[k]
-                upd = sc > bestv
-                best = jnp.where(upd, k, best)
-                bestv = jnp.maximum(bestv, sc)
-            u_expl = (sk._u16(bits0, 0)).astype(jnp.int32)
-            rand = (sk._u16(bits0, 1)).astype(jnp.int32) % N_ACTIONS
-            a = jnp.where(u_expl < eps_int, rand, best)
+                vmax = jnp.maximum(vmax, qs[k])
+                vmin = jnp.minimum(vmin, qs[k])
+            return jnp.where(turn == 0, vmax, vmin)
 
-            q_cur = jnp.zeros(blk_shape, jnp.float32)
-            for k in range(N_ACTIONS):
-                q_cur = q_cur + jnp.where(a == k, qs[k], 0.0)
-
-            nra, nca, nrb, ncb, npz, goal, r = sk.alt_transition_core(
-                ra, ca, rb, cb, p, turn, a, bits1, cfg, q_int)
-            nra, nca, nrb, ncb, npz, t2, trunc = sk.autoreset_core(
-                nra, nca, nrb, ncb, npz, t, goal, bits2, cfg)
-            term = goal | trunc
-            nturn = jnp.where(term, 0, 1 - turn)
-            cont = jnp.where(term, 0.0, gamma_f)
-
-            td_col = a + jnp.where(turn == 0, ACC_TD_A, ACC_TD_B)
-            cnt_col = a + jnp.where(turn == 0, ACC_CNT_A, ACC_CNT_B)
-            new_pend = (cp, td_col, cnt_col, r.astype(jnp.float32), cont,
-                        q_cur, jnp.ones(blk_shape, jnp.float32))
-            return (nra, nca, nrb, ncb, npz, nturn, t2, new_pend,
-                    rew_acc + jnp.sum(r),
-                    goal_acc + jnp.sum(goal.astype(jnp.int32)),
-                    trunc_acc + jnp.sum(trunc.astype(jnp.int32)))
-
-        init = (ra_ref[sl, :], ca_ref[sl, :], rb_ref[sl, :], cb_ref[sl, :],
-                p_ref[sl, :], turn_ref[sl, :], t_ref[sl, :],
-                (zi, zi, zi, zf, zf, zf, zf), *carry0)
-        (ra, ca, rb, cb, p, turn, t, pend,
-         rew_acc, goal_acc, trunc_acc) = jax.lax.fori_loop(
-            0, n_steps, step, init)
-
-        # trailing gather retires the final step's TD
-        cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-        retire(mover_q(gather_rows(cp, bounds(cp)), turn), turn, pend)
-
-        ra_ref[sl, :], ca_ref[sl, :] = ra, ca
-        rb_ref[sl, :], cb_ref[sl, :] = rb, cb
-        p_ref[sl, :], turn_ref[sl, :], t_ref[sl, :] = p, turn, t
-        return (rew_acc, goal_acc, trunc_acc)
-
-    z = jnp.int32(0)
-    rew, goals, truncs = jax.lax.fori_loop(0, n_blocks, block, (z, z, z))
-    ora[:], oca[:] = ra_ref[:], ca_ref[:]
-    orb[:], ocb[:] = rb_ref[:], cb_ref[:]
-    op[:], oturn[:], ot[:] = p_ref[:], turn_ref[:], t_ref[:]
-    stats_ref[0, 0] = rew
-    stats_ref[0, 1] = goals
-    stats_ref[0, 2] = truncs
-
-
-def _spm_t(cfg: EnvConfig) -> int:
-    """Packed row count (GP_T turnless cellpairs per row, M and acc)."""
-    from ..core import rules
-    from .learner_kernel import _pad_sp
-    return _pad_sp(-(-rules.n_cellpairs(cfg) // GP_T))
-
-
-def _altq_packed_kernel(smem_ref, m_ref, ra_ref, ca_ref, rb_ref, cb_ref,
-                        p_ref, turn_ref, t_ref,
-                        ora, oca, orb, ocb, op, oturn, ot, acc_ref,
-                        stats_ref,
-                        *, cfg: EnvConfig, n_steps: int, q_int: int,
-                        gamma: float, rb: int):
-    """Packed alternating-turn act/step/TD loop (see the PACKED layout
-    comment above): 6 cellpairs per M/acc row, residual accumulation."""
-    from ..core import rules
-    RBk = rb
-    seed = smem_ref[0].astype(jnp.uint32)
-    eps_int = smem_ref[1]
-    off = smem_ref[2]
-    R = ra_ref.shape[0]
-    n_blocks = R // RBk
-    SP = m_ref.shape[0]
-    SLAB = SP if SP <= 2 * SLAB_MAX else SLAB_MAX
-    n_slabs = SP // SLAB
-    blk_shape = (RBk, LANES)
-
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    rows_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 0)
-    cols_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 1)
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, blk_shape + (LANES,), 2)
-    gamma_f = jnp.float32(gamma)
-
-    gather_rows = make_gather(m_ref, SLAB, n_slabs, RBk)
-    scatter_add = make_scatter(acc_ref, SLAB, n_slabs, RBk, blk_shape)
-
-    def bounds(cp):
-        if n_slabs == 1:
-            return None
-        return jnp.min(cp) // SLAB, jnp.max(cp) // SLAB + 1
-
-    def mover_q(pre, g, turn):
-        """Group-select + hi/lo recombine + turn-block select -> the
-        mover's 5 q columns [rb, lanes]."""
-        is_a = turn == 0
-        qs = []
-        for k in range(N_ACTIONS):
-            sa = sb = None
-            for gg in range(GP_T):
-                base = gg * GCOLS_T
-                ca_v = jnp.where(
-                    g == gg, pre[:, base + COL_QA + k, :]
-                    + pre[:, base + COL_QA_LO + k, :], 0.0)
-                cb_v = jnp.where(
-                    g == gg, pre[:, base + COL_QB + k, :]
-                    + pre[:, base + COL_QB_LO + k, :], 0.0)
-                sa = ca_v if sa is None else sa + ca_v
-                sb = cb_v if sb is None else sb + cb_v
-            qs.append(jnp.where(is_a, sa, sb))
-        return qs
-
-    def minimax_v(qs, turn):
-        vmax, vmin = qs[0], qs[0]
-        for k in range(1, N_ACTIONS):
-            vmax = jnp.maximum(vmax, qs[k])
-            vmin = jnp.minimum(vmin, qs[k])
-        return jnp.where(turn == 0, vmax, vmin)
-
-    def retire(v_here, pend):
-        cpa, td_col, r, cont, v_prev, valid = pend
-        res = r + cont * v_here - v_prev     # Bellman residual
-        X = (((c_iota == td_col[..., None]).astype(jnp.float32)
-              * res[..., None]
-              + (c_iota == (td_col[..., None] + TACC_CNT)).astype(
-                jnp.float32))
-             * valid[..., None]).astype(jnp.bfloat16)
-        scatter_add(cpa, X, bounds(cpa))
-
-    def block(blk, carry0):
-        sl = pl.ds(blk * RBk, RBk)
-        lane = ((blk.astype(jnp.uint32) * RBk + rows_iota)
-                * jnp.uint32(LANES) + cols_iota)
-        zi = jnp.zeros(blk_shape, jnp.int32)
-        zf = jnp.zeros(blk_shape, jnp.float32)
+        def retire(v_here, pend):
+            cell, r, cont, v_prev, valid = pend
+            scatter_residual(ctx, 0, cell, r + cont * v_here - v_prev, valid)
 
         def step(i, c):
-            (ra, ca, rb, cb, p, turn, t, pend,
-             rew_acc, goal_acc, trunc_acc) = c
-            bits0 = sk._random_word(seed, i + off, 0, lane)
-            bits1 = sk._random_word(seed, i + off, 1, lane)
-            bits2 = sk._random_word(seed, i + off, 2, lane)
+            ra, ca, rb, cb, p, turn, t, pend, rew, goals, truncs = c
+            bits0 = sk._random_word(seed, i + off, 0, ctx.lane)
+            bits1 = sk._random_word(seed, i + off, 1, ctx.lane)
+            bits2 = sk._random_word(seed, i + off, 2, ctx.lane)
 
-            cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-            cpm = cp // GP_T
-            g = cp % GP_T
-            pre = gather_rows(cpm, bounds(cpm))
-            qs = mover_q(pre, g, turn)
+            code = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
+            qs = mover_q(code, turn)
             v_here = minimax_v(qs, turn)
             retire(v_here, pend)
 
+            # eps-greedy mover action: A maximizes, B minimizes (the
+            # table is A-perspective), both over the SAME row.
             sgn = jnp.where(turn == 0, 1.0, -1.0)
-            best = jnp.zeros(blk_shape, jnp.int32)
+            best = jnp.zeros_like(ra)
             bestv = sgn * qs[0]
             for k in range(1, N_ACTIONS):
                 sc = sgn * qs[k]
-                upd = sc > bestv
-                best = jnp.where(upd, k, best)
+                best = jnp.where(sc > bestv, k, best)
                 bestv = jnp.maximum(bestv, sc)
-            u_expl = (sk._u16(bits0, 0)).astype(jnp.int32)
-            rand = (sk._u16(bits0, 1)).astype(jnp.int32) % N_ACTIONS
+            u_expl = sk._u16(bits0, 0)
+            rand = sk._u16(bits0, 1) % N_ACTIONS
             a = jnp.where(u_expl < eps_int, rand, best)
 
             nra, nca, nrb, ncb, npz, goal, r = sk.alt_transition_core(
@@ -331,177 +103,44 @@ def _altq_packed_kernel(smem_ref, m_ref, ra_ref, ca_ref, rb_ref, cb_ref,
             term = goal | trunc
             nturn = jnp.where(term, 0, 1 - turn)
             cont = jnp.where(term, 0.0, gamma_f)
-
-            td_col = g * GCOLS_T + turn * 10 + TACC_TD + a
-            new_pend = (cp // GP_T, td_col, r.astype(jnp.float32), cont,
-                        v_here, jnp.ones(blk_shape, jnp.float32))
+            new_pend = ((code * 2 + turn) * N_ACTIONS + a,
+                        r.astype(jnp.float32), cont, v_here,
+                        jnp.ones_like(ra))
             return (nra, nca, nrb, ncb, npz, nturn, t2, new_pend,
-                    rew_acc + jnp.sum(r),
-                    goal_acc + jnp.sum(goal.astype(jnp.int32)),
-                    trunc_acc + jnp.sum(trunc.astype(jnp.int32)))
+                    rew + r, goals + goal.astype(jnp.int32),
+                    truncs + trunc.astype(jnp.int32))
 
-        init = (ra_ref[sl, :], ca_ref[sl, :], rb_ref[sl, :], cb_ref[sl, :],
-                p_ref[sl, :], turn_ref[sl, :], t_ref[sl, :],
-                (zi, zi, zf, zf, zf, zf), *carry0)
-        (ra, ca, rb, cb, p, turn, t, pend,
-         rew_acc, goal_acc, trunc_acc) = jax.lax.fori_loop(
-            0, n_steps, step, init)
+        zi = jnp.zeros_like(lanes[0])
+        zf = jnp.zeros(zi.shape, jnp.float32)
+        init = tuple(lanes[:7]) + ((zi, zf, zf, zf, zi), zi, zi, zi)
+        ra, ca, rb, cb, p, turn, t, pend, rew, goals, truncs = ctx.fori(
+            n_steps, step, init)
+        # trailing read retires the final step's TD
+        code = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
+        retire(minimax_v(mover_q(code, turn), turn), pend)
+        return ra, ca, rb, cb, p, turn, t, rew, goals, truncs
 
-        # trailing gather retires the final step's TD
-        cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-        cpm = cp // GP_T
-        pre = gather_rows(cpm, bounds(cpm))
-        retire(minimax_v(mover_q(pre, cp % GP_T, turn), turn), pend)
-
-        ra_ref[sl, :], ca_ref[sl, :] = ra, ca
-        rb_ref[sl, :], cb_ref[sl, :] = rb, cb
-        p_ref[sl, :], turn_ref[sl, :], t_ref[sl, :] = p, turn, t
-        return (rew_acc, goal_acc, trunc_acc)
-
-    z = jnp.int32(0)
-    rew, goals, truncs = jax.lax.fori_loop(0, n_blocks, block, (z, z, z))
-    ora[:], oca[:] = ra_ref[:], ca_ref[:]
-    orb[:], ocb[:] = rb_ref[:], cb_ref[:]
-    op[:], oturn[:], ot[:] = p_ref[:], turn_ref[:], t_ref[:]
-    stats_ref[0, 0] = rew
-    stats_ref[0, 1] = goals
-    stats_ref[0, 2] = truncs
+    return body
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "batch", "n_steps",
-                                             "gamma", "interpret"))
-def altq_packed_chunk(cfg: EnvConfig, seed, eps_int, m_packed, state_fields,
-                      batch: int, n_steps: int, gamma: float = 0.99,
-                      step_offset=0, interpret: bool = False):
-    """Packed-layout fused alternating-learner chunk.  ``m_packed``
-    [_spm_t(cfg), 128] bfloat16 from `pack_alt_m2`; decode acc with
-    `unpack_alt_acc2` (residual sums + counts)."""
-    assert n_steps > 0
-    assert batch % LANES == 0, f"batch must be a multiple of {LANES}"
-    shape = (batch // LANES, LANES)
-    SP = _spm_t(cfg)
-    rb = next(r for r in range(min(RB, shape[0]), 0, -1)
-              if shape[0] % r == 0)
-    vmem_mb = SP * LANES * (2 + 4) / 2**20
-    if vmem_mb > 14:
-        raise ValueError(
-            f"grid too large for the fused learner kernel: packed tables "
-            f"need ~{vmem_mb:.0f} MB of VMEM ({SP} rows); "
-            f"use agents.learners.altq_train (HBM tables) instead")
-    q_int = int(round(cfg.slip_prob * 65536))
-    kernel = functools.partial(
-        _altq_packed_kernel, cfg=cfg, n_steps=n_steps, q_int=q_int,
-        gamma=gamma, rb=rb)
-    out_shapes = ([jax.ShapeDtypeStruct(shape, jnp.int32)] * 7 +
-                  [jax.ShapeDtypeStruct((SP, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((1, 4), jnp.int32)])
-    smem_in = jnp.stack([jnp.asarray(seed, jnp.int32),
-                         jnp.asarray(eps_int, jnp.int32),
-                         jnp.asarray(step_offset, jnp.int32)])
-    outs = pl.pallas_call(
-        kernel,
-        out_shape=tuple(out_shapes),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)] +
-                 [pl.BlockSpec(memory_space=pltpu.VMEM)] * 7,
-        out_specs=tuple([pl.BlockSpec(memory_space=pltpu.VMEM)] * 8 +
-                        [pl.BlockSpec(memory_space=pltpu.SMEM)]),
-        input_output_aliases={2 + i: i for i in range(7)},
-        interpret=interpret,
-    )(smem_in, m_packed, *state_fields)
-    *fields, acc, stats = outs
-    return tuple(fields), acc, (stats[0, 0], stats[0, 1], stats[0, 2])
-
-
-def pack_alt_m2(cfg: EnvConfig, q) -> jnp.ndarray:
-    """Pack the alternating Q table [nS_alt, 5] into the PACKED M
-    [_spm_t(cfg), 128] bfloat16 (GP_T cellpairs per row, both turns'
-    hi/lo blocks per cellpair)."""
-    SP = _spm_t(cfg)
-    rows, turn = _alt_rows(cfg)
-    rows = jnp.asarray(rows)
-    tb = jnp.asarray(turn)
-    q = jnp.asarray(q, jnp.float32)
-    hi = q.astype(jnp.bfloat16).astype(jnp.float32)
-    lo = q - hi
-    # per dense state: its (row, turn) slot's hi/lo column bases
-    idx = (rows // GP_T) * LANES + (rows % GP_T) * GCOLS_T + tb * 10
-    flat = jnp.zeros(SP * LANES, jnp.float32)
-    for k in range(N_ACTIONS):
-        flat = flat.at[idx + COL_QA + k].set(hi[:, k])
-        flat = flat.at[idx + COL_QA_LO + k].set(lo[:, k])
-    return flat.reshape(SP, LANES).astype(jnp.bfloat16)
-
-
-def unpack_alt_acc2(cfg: EnvConfig, acc) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """acc [_spm_t, 128] -> dense (sum_residual, cnt), each [nS_alt, 5].
-    The per-visit TD is residual + (V - q[s, a]) with V = max_a q (A to
-    move) / min_a q (B to move), so sum_td = sum_res + cnt * (V[:, None]
-    - q)."""
-    rows, turn = _alt_rows(cfg)
-    rows = jnp.asarray(rows)
-    tb = jnp.asarray(turn)
-    idx = (rows // GP_T) * LANES + (rows % GP_T) * GCOLS_T + tb * 10
-    flat = acc.reshape(-1)
-    cols = jnp.arange(N_ACTIONS)[None, :]
-    sum_res = flat[idx[:, None] + TACC_TD + cols]
-    cnt = flat[idx[:, None] + TACC_CNT + cols]
-    return sum_res, cnt
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "batch", "n_steps",
-                                             "gamma", "interpret"))
-def altq_chunk(cfg: EnvConfig, seed, eps_int, m_packed, state_fields,
-               batch: int, n_steps: int, gamma: float = 0.99,
-               step_offset=0, interpret: bool = False):
-    """Run one fused alternating-learner chunk.  ``m_packed``
-    [spc(cfg), 128] bfloat16 (see module docstring); ``state_fields`` =
-    7 int32 [batch/128, 128] arrays (ra, ca, rb, cb, p, turn, t);
-    ``eps_int`` = exploration threshold on u16 draws (round(eps*65536),
-    traced so anneals don't recompile).  Returns (new_fields,
-    acc [spc, 128] f32, stats[3])."""
-    assert n_steps > 0
-    assert batch % LANES == 0, f"batch must be a multiple of {LANES}"
-    shape = (batch // LANES, LANES)
-    SP = spc(cfg)
-    cap = RB if SP <= 2 * SLAB_MAX else RB_SLABBED
-    rb = next(r for r in range(min(cap, shape[0]), 0, -1)
-              if shape[0] % r == 0)
-
-    vmem_mb = SP * LANES * (2 + 4) / 2**20
-    if vmem_mb > 14:
-        raise ValueError(
-            f"grid too large for the fused learner kernel: packed tables "
-            f"need ~{vmem_mb:.0f} MB of VMEM (compact state space "
-            f"{cfg.width}x{cfg.height} -> {SP} codes); "
-            f"use agents.learners.altq_train (HBM tables) instead")
-    q_int = int(round(cfg.slip_prob * 65536))
-    kernel = functools.partial(
-        _altq_kernel, cfg=cfg, n_steps=n_steps, q_int=q_int, gamma=gamma,
-        rb=rb)
-    out_shapes = ([jax.ShapeDtypeStruct(shape, jnp.int32)] * 7 +
-                  [jax.ShapeDtypeStruct((SP, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((1, 4), jnp.int32)])
-    smem_in = jnp.stack([jnp.asarray(seed, jnp.int32),
-                         jnp.asarray(eps_int, jnp.int32),
-                         jnp.asarray(step_offset, jnp.int32)])
-    outs = pl.pallas_call(
-        kernel,
-        out_shape=tuple(out_shapes),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)] +
-                 [pl.BlockSpec(memory_space=pltpu.VMEM)] * 7,
-        out_specs=tuple([pl.BlockSpec(memory_space=pltpu.VMEM)] * 8 +
-                        [pl.BlockSpec(memory_space=pltpu.SMEM)]),
-        input_output_aliases={2 + i: i for i in range(7)},
-        interpret=interpret,
-    )(smem_in, m_packed, *state_fields)
-    *fields, acc, stats = outs
-    return tuple(fields), acc, (stats[0, 0], stats[0, 1], stats[0, 2])
+@ll.static_args("cfg", "batch", "n_steps", "gamma")
+def altq_chunk(cfg: EnvConfig, seed, eps_int, m, state_fields, batch: int,
+               n_steps: int, gamma: float = 0.99, step_offset=0,
+               backend: str = "triton", block: int = ll.BLOCK, interpret: bool = False):
+    """Run one fused alternating-learner chunk.  ``m`` from `pack_alt_m`;
+    ``state_fields`` = 7 int32 [batch/128, 128] planes (ra, ca, rb, cb,
+    p, turn, t); ``eps_int`` = exploration threshold on u16 draws
+    (round(eps*65536), traced so anneals don't recompile).  Returns
+    (new_fields, acc, stats[3]); decode acc with `unpack_alt_acc`."""
+    return run_chunk(_altq_body(cfg, n_steps, gamma), state_fields, seed,
+                     batch, n_steps, 7, m, 2 * n_codes(cfg) * N_ACTIONS,
+                     scalars=(eps_int, step_offset), name="altq_chunk",
+                     backend=backend, block=block,
+                     interpret=interpret)
 
 
 # ----------------------------------------------------------------------
-# Host-side packing and the chunked training wrapper
+# Packing and the chunked training wrapper
 # ----------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -509,7 +148,7 @@ def _alt_rows(cfg: EnvConfig) -> tuple[np.ndarray, np.ndarray]:
     """(cellpair row, turn) of each alternating dense state.  (row, turn)
     is unique per reachable state; dense 0 (the absorbing terminal) maps
     to a goal state's cellpair, which no reachable state shares and which
-    the autoresetting kernel never visits."""
+    the autoresetting chunk never visits."""
     from ..core import rules
     from ..envs.soccer_alternating_env import build_alt_tables
     tb = build_alt_tables(cfg)
@@ -519,33 +158,30 @@ def _alt_rows(cfg: EnvConfig) -> tuple[np.ndarray, np.ndarray]:
     return rows, tb.turn.astype(np.int32)
 
 
-def pack_alt_m(cfg: EnvConfig, q) -> jnp.ndarray:
-    """Pack the alternating Q table [nS_alt, 5] into the kernel's
-    compact-row / turn-split-column M [spc, 128] bfloat16 (double-bf16
-    hi/lo columns; see ops/learner_kernel.py's precision note)."""
-    SP = spc(cfg)
+def _alt_cells(cfg: EnvConfig):
+    """(row, turn) slot of each alternating dense state in M and acc."""
     rows, turn = _alt_rows(cfg)
-    q = jnp.asarray(q, jnp.float32)
-    hi = q.astype(jnp.bfloat16).astype(jnp.float32)
-    lo = q - hi
-    m = jnp.zeros((SP, LANES), jnp.float32)
-    a_mask, b_mask = turn == 0, turn == 1
-    m = m.at[rows[a_mask], COL_QA:COL_QA + 5].set(hi[a_mask])
-    m = m.at[rows[a_mask], COL_QA_LO:COL_QA_LO + 5].set(lo[a_mask])
-    m = m.at[rows[b_mask], COL_QB:COL_QB + 5].set(hi[b_mask])
-    m = m.at[rows[b_mask], COL_QB_LO:COL_QB_LO + 5].set(lo[b_mask])
-    return m.astype(jnp.bfloat16)
+    return jnp.asarray(rows), jnp.asarray(turn)
+
+
+def pack_alt_m(cfg: EnvConfig, q) -> jnp.ndarray:
+    """Pack the alternating Q table [nS_alt, 5] into M, f32 [n_codes *
+    M_COLS] (turnless row, turn-split columns)."""
+    rows, turn = _alt_cells(cfg)
+    cols = turn[:, None] * N_ACTIONS + jnp.arange(N_ACTIONS)[None, :]
+    m = jnp.zeros((n_codes(cfg), M_COLS), jnp.float32)
+    m = m.at[rows[:, None], cols].set(jnp.asarray(q, jnp.float32))
+    return m.reshape(-1)
 
 
 def unpack_alt_acc(cfg: EnvConfig, acc) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """acc [spc, 128] -> dense (sum_td, cnt), each [nS_alt, 5]."""
-    rows, turn = _alt_rows(cfg)
-    is_a = jnp.asarray(turn == 0)[:, None]
-    sum_td = jnp.where(is_a, acc[rows, ACC_TD_A:ACC_TD_A + 5],
-                       acc[rows, ACC_TD_B:ACC_TD_B + 5])
-    cnt = jnp.where(is_a, acc[rows, ACC_CNT_A:ACC_CNT_A + 5],
-                    acc[rows, ACC_CNT_B:ACC_CNT_B + 5])
-    return sum_td, cnt
+    """acc -> dense (sum_residual, cnt), each [nS_alt, 5].  The per-visit
+    TD is residual + (V - q[s, a]) with V = max_a q (A to move) / min_a q
+    (B to move), so sum_td = sum_res + cnt * (V[:, None] - q)."""
+    rows, turn = _alt_cells(cfg)
+    cells = ((rows * 2 + turn)[:, None] * N_ACTIONS
+             + jnp.arange(N_ACTIONS)[None, :])
+    return decode_acc(acc, cells)
 
 
 def init_alt_state_fields(cfg: EnvConfig, batch: int):
@@ -561,10 +197,9 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
                      eps_min: float = 0.0, eps_halflife: int = 0,
                      lr_anneal_start: int = 0, lr_anneal_tau: float = 0.0,
                      lr_anneal_pow: float = 1.0, seed: int = 0,
-                     interpret: bool = False, init=None, mesh=None,
-                     start_chunk: int = 0, fields_init=None,
-                     return_state: bool = False,
-                     packed: bool | None = None,
+                     backend: str = "triton", interpret: bool = False,
+                     init=None, mesh=None, start_chunk: int = 0,
+                     fields_init=None, return_state: bool = False,
                      chunks_per_dispatch: int = 1):
     """Chunked fused alternating-turn Q-learning.  Returns (q,
     stats_history); ``q`` [nS_alt, 5] has `alt_value_iteration`'s exact
@@ -578,7 +213,8 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     ``init`` optionally warm-starts q (an [nS_alt, 5] array).  ``mesh``
     (a jax.sharding.Mesh with an 'env' axis) DP-shards the lane batch:
     per-device fused chunks with psum'd accumulators
-    (parallel/mesh.sharded_altq_chunk_fn).
+    (parallel/mesh.sharded_altq_chunk_fn).  ``backend``/``interpret``
+    pick the chunk launcher as in ops/learner_kernel.fused_minimax_train.
 
     ``start_chunk``/``fields_init``/``return_state`` give EXACT
     checkpoint/resume (see ops/learner_kernel.fused_minimax_train): with
@@ -588,15 +224,13 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     ``start_chunk=resume['next_chunk']`` continues bit-identically to an
     uninterrupted run (chunk PRNG seeds, the in-kernel step_offset and
     the lr/eps schedules all key off the absolute chunk index; M packs
-    from q alone, so no schedule state needs recovering).  The resume
-    dict records ``packed``; restore under the same layout.
+    from q alone, so no schedule state needs recovering).
     ``stats_history`` cadence differs by dispatch mode: the per-chunk
     loop records every 16th chunk (plus the last); grouped dispatches
     (``chunks_per_dispatch`` > 1) record every chunk."""
     from ..envs.soccer_alternating_env import build_alt_tables
     nS = build_alt_tables(cfg).nS
-    if packed is None:
-        packed = True
+    launch = dict(backend=backend, interpret=interpret)
     q = (jnp.zeros((nS, N_ACTIONS), jnp.float32) if init is None
          else jnp.asarray(init, jnp.float32))
     assert q.shape == (nS, N_ACTIONS)
@@ -608,35 +242,28 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
         from jax.sharding import NamedSharding, PartitionSpec
         from ..parallel.mesh import sharded_altq_chunk_fn
         sharded = sharded_altq_chunk_fn(cfg, mesh, batch, chunk_len,
-                                        gamma=gamma, interpret=interpret,
-                                        packed=packed)
+                                        gamma=gamma, **launch)
         sh = NamedSharding(mesh, PartitionSpec("env", None))
         fields = tuple(jax.device_put(f, sh) for f in fields)
 
         def chunk(seed_k, eps_int, m, fields, step_offset):
             return sharded(seed_k, eps_int, m, fields, step_offset)
     else:
-        chunk_f = altq_packed_chunk if packed else altq_chunk
-
         def chunk(seed_k, eps_int, m, fields, step_offset):
-            return chunk_f(cfg, seed_k, eps_int, m, fields, batch,
-                           chunk_len, gamma=gamma,
-                           step_offset=step_offset, interpret=interpret)
+            return altq_chunk(cfg, seed_k, eps_int, m, fields, batch,
+                              chunk_len, gamma=gamma,
+                              step_offset=step_offset, **launch)
 
-    pack_f = pack_alt_m2 if packed else pack_alt_m
     _, turn_arr = _alt_rows(cfg)
     is_a = jnp.asarray(turn_arr == 0)
 
     @jax.jit
     def between(q, acc, lr_now):
-        if packed:
-            sum_res, cnt = unpack_alt_acc2(cfg, acc)
-            v = jnp.where(is_a, q.max(-1), q.min(-1))
-            sum_td = sum_res + cnt * (v[:, None] - q)
-        else:
-            sum_td, cnt = unpack_alt_acc(cfg, acc)
+        sum_res, cnt = unpack_alt_acc(cfg, acc)
+        v = jnp.where(is_a, q.max(-1), q.min(-1))
+        sum_td = sum_res + cnt * (v[:, None] - q)
         q = q + lr_now * sum_td / jnp.maximum(cnt, 1.0)
-        return q, pack_f(cfg, q)
+        return q, pack_alt_m(cfg, q)
 
     def lr_at(k):
         d = lr
@@ -652,7 +279,7 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
         return jnp.maximum(d, eps_min) if isinstance(k, jax.Array) \
             else max(d, eps_min)
 
-    m = pack_f(cfg, q)
+    m = pack_alt_m(cfg, q)
     history = []
     end_chunk = start_chunk + n_chunks
     if chunks_per_dispatch > 1:
@@ -699,5 +326,5 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
                    for row in history]
     if return_state:
         return q, history, {"q": q, "fields": fields,
-                            "next_chunk": end_chunk, "packed": packed}
+                            "next_chunk": end_chunk}
     return q, history

@@ -1,314 +1,96 @@
-"""Fused pallas INDEPENDENT-Q (IQL) kernel for the simultaneous game.
+"""Fused INDEPENDENT-Q (IQL) chunks for the simultaneous game.
 
 Completes the fused learner family (minimax: ops/learner_kernel,
 alternating-turn: ops/altq_kernel): both players run eps-greedy
-Q-learning on their OWN table — A on reward r, B on -r (zero-sum,
-reference soccer_simultaneous_env.py:400-402) — with whole act/step/TD
-chunks on-chip:
+Q-learning on their OWN table -- A on reward r, B on -r (zero-sum,
+reference soccer_simultaneous_env.py:400-402) -- with whole act/step/TD
+chunks per lane on the lane loop (ops/lane_loop.py):
 
-* both tables pack into one VMEM matrix M [spc, 128] bfloat16 indexed by
-  the compact cellpair code: A's Q in columns 0-9, B's in 10-19
-  (double-bf16 hi/lo — see ops/learner_kernel's precision note);
-* ONE gather matmul per step fetches both players' rows, serving both
-  eps-greedy argmax action selection and the pipelined TD retirement's
-  max-bootstraps (terminated lanes masked by cont=0);
-* TD sums and visit counts for both players accumulate into acc
-  [spc, 128] f32 via one_hot^T matmuls with locality-adaptive slab
-  bounds (shared learner_kernel.make_gather/make_scatter);
-* the env transition is ops/step_kernel.transition_core — identical
-  rules and counter PRNG to the rollout and minimax learner kernels.
+* both tables sit in one f32 M [n_codes, M_COLS] indexed by the compact
+  cellpair code: A's Q in columns 0-4, B's in 5-9.  One row read per
+  step serves both eps-greedy argmax action selection and the pipelined
+  TD retirement's max-bootstraps (terminated lanes masked by cont=0);
+* as in the minimax chunk, M is frozen within a chunk, so each lane
+  accumulates the Bellman RESIDUAL per player (r_side + gamma*maxq(s') -
+  maxq(s)) and a visit count in the exact int32 fixed-point accumulator
+  (learner_kernel.scatter_residual); the between-chunk update completes
+  the TD with cnt * (maxq - q[s, a]);
+* the env transition is ops/step_kernel.transition_core -- identical
+  rules and counter PRNG to the rollout and minimax chunks.
 
-M is FROZEN within a chunk (chunk-stale TD baselines, the same cadence
-as agents/learners.iql_train with per-chunk batch updates); the wrapper
-applies count-normalized mean updates between chunks.  Self-play IQL
-has no equilibrium guarantee (that is minimax-Q's job); the fused
-kernel covers the same self-play surface as agents/learners.iql_*;
-for frozen-opponent best-response training at fused speed use
+Self-play IQL has no equilibrium guarantee (that is minimax-Q's job); the
+fused chunk covers the same self-play surface as agents/learners.iql_*;
+for frozen-opponent best-response training use
 ops/learner_kernel.fused_best_response_train (the reference's
-single-agent mode on the packed minimax kernel).
+single-agent mode on the minimax chunk).
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import EnvConfig, N_ACTIONS
+from . import lane_loop as ll
 from . import step_kernel as sk
-from .learner_kernel import (LANES, RB, RB_SLABBED, SLAB_MAX, _cell_rows,
-                             make_gather, make_scatter, spc)
+from .learner_kernel import (M_COLS, _cell_rows, decode_acc, n_codes,
+                             run_chunk, scatter_residual)
 
-# M column layout (per player); acc column layout below.
-COL_QA, COL_QA_LO = 0, 5
-COL_QB, COL_QB_LO = 10, 15
-ACC_TD_A, ACC_TD_B = 0, 8
-ACC_CNT_A, ACC_CNT_B = 16, 24
-
-# PACKED layout (default; see ops/learner_kernel's PACKED comment for
-# the scheme).  A state needs 20 M columns (both players' q hi/lo) and
-# 20 accumulator columns (td + cnt per player), so GP_I = 6 states share
-# each 128-wide row on BOTH sides — a 6x cut in gather AND scatter
-# matmul rows.  As in the minimax kernel, the scatter operand is bf16,
-# so the kernel accumulates the Bellman RESIDUAL per player
-# (r_side + gamma*maxq(s') - maxq(s), the maxes from the acting
-# gathers) and the host completes the TD with the exact
-# cnt * (maxq - q[s, a]) term between chunks.
-GP_I, GCOLS_I = 6, 20
-IACC_TD_A, IACC_CNT_A, IACC_TD_B, IACC_CNT_B = 0, 5, 10, 15
+COL_QA, COL_QB = 0, 5
 
 
-def _iql_kernel(smem_ref, m_ref, ra_ref, ca_ref, rb_ref, cb_ref,
-                p_ref, t_ref,
-                ora, oca, orb, ocb, op, ot, acc_ref, stats_ref,
-                *, cfg: EnvConfig, n_steps: int, q_int: int,
-                gamma: float, rb: int):
-    """Block-major fused dual-actor/TD loop (pipelined retirement: step
-    i's two TDs use the max-bootstraps computed from step i+1's gather,
-    with a trailing gather for the last step)."""
+def greedy_and_max(qs):
+    """(first argmax, max) over 5 Q columns."""
+    best = jnp.zeros(qs[0].shape, jnp.int32)
+    bestv = qs[0]
+    for k in range(1, N_ACTIONS):
+        upd = qs[k] > bestv
+        best = jnp.where(upd, k, best)
+        bestv = jnp.maximum(bestv, qs[k])
+    return best, bestv
+
+
+def _iql_body(cfg: EnvConfig, n_steps: int, gamma: float):
+    """Per-lane dual-actor/TD loop (pipelined retirement: step i's two
+    TDs use the max-bootstraps read at step i+1, with a trailing read for
+    the last step).  Accumulator cells: A's (code, a) at code*5 + a, B's
+    at n_codes*5 + code*5 + b."""
     from ..core import rules
-    RBk = rb
-    seed = smem_ref[0].astype(jnp.uint32)
-    eps_int = smem_ref[1]
-    off = smem_ref[2]
-    R = ra_ref.shape[0]
-    n_blocks = R // RBk
-    SP = m_ref.shape[0]
-    SLAB = SP if SP <= 2 * SLAB_MAX else SLAB_MAX
-    n_slabs = SP // SLAB
-    blk_shape = (RBk, LANES)
+    q_int = int(round(cfg.slip_prob * 65536))
+    b_base = n_codes(cfg) * N_ACTIONS
 
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    rows_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 0)
-    cols_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 1)
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, blk_shape + (LANES,), 2)
-    gamma_f = jnp.float32(gamma)
+    def body(ctx, lanes):
+        seed = ctx.scalar(0).astype(jnp.uint32)
+        eps_int = ctx.scalar(1)
+        off = ctx.scalar(2)
+        gamma_f = jnp.float32(gamma)
 
-    gather_rows = make_gather(m_ref, SLAB, n_slabs, RBk)
-    scatter_add = make_scatter(acc_ref, SLAB, n_slabs, RBk, blk_shape)
+        def qrow(code, base):
+            return [ctx.gather(0, code * M_COLS + base + k)
+                    for k in range(N_ACTIONS)]
 
-    def bounds(cp):
-        if n_slabs == 1:
-            return None
-        return jnp.min(cp) // SLAB, jnp.max(cp) // SLAB + 1
-
-    def col(pre, c):
-        return pre[:, c, :]
-
-    def player_q(pre, base, base_lo):
-        return [col(pre, base + k) + col(pre, base_lo + k)
-                for k in range(N_ACTIONS)]
-
-    def greedy_and_max(qs):
-        best = jnp.zeros(blk_shape, jnp.int32)
-        bestv = qs[0]
-        for k in range(1, N_ACTIONS):
-            upd = qs[k] > bestv
-            best = jnp.where(upd, k, best)
-            bestv = jnp.maximum(bestv, qs[k])
-        return best, bestv
-
-    def retire(qa, qb, pend):
-        cp, aa, ab, r, cont, qa_cur, qb_cur, valid = pend
-        _, v_a = greedy_and_max(qa)
-        _, v_b = greedy_and_max(qb)
-        td_a = r + cont * v_a - qa_cur
-        td_b = -r + cont * v_b - qb_cur
-        X = (((c_iota == (aa[..., None] + ACC_TD_A)).astype(jnp.float32)
-              * td_a[..., None]
-              + (c_iota == (ab[..., None] + ACC_TD_B)).astype(jnp.float32)
-              * td_b[..., None]
-              + (c_iota == (aa[..., None] + ACC_CNT_A)).astype(jnp.float32)
-              + (c_iota == (ab[..., None] + ACC_CNT_B)).astype(jnp.float32))
-             * valid[..., None]).astype(jnp.bfloat16)
-        scatter_add(cp, X, bounds(cp))
-
-    def block(blk, carry0):
-        sl = pl.ds(blk * RBk, RBk)
-        lane = ((blk.astype(jnp.uint32) * RBk + rows_iota)
-                * jnp.uint32(LANES) + cols_iota)
-        zi = jnp.zeros(blk_shape, jnp.int32)
-        zf = jnp.zeros(blk_shape, jnp.float32)
+        def retire(v_a, v_b, pend):
+            cell_a, cell_b, r, cont, va_prev, vb_prev, valid = pend
+            scatter_residual(ctx, 0, cell_a, r + cont * v_a - va_prev, valid)
+            scatter_residual(ctx, 0, cell_b, -r + cont * v_b - vb_prev,
+                             valid)
 
         def step(i, c):
-            (ra, ca, rb, cb, p, t, pend,
-             rew_acc, goal_acc, trunc_acc) = c
-            bits0 = sk._random_word(seed, i + off, 0, lane)
-            bits1 = sk._random_word(seed, i + off, 1, lane)
-            bits2 = sk._random_word(seed, i + off, 2, lane)
-            bits3 = sk._random_word(seed, i + off, 3, lane)
+            ra, ca, rb, cb, p, t, pend, rew, goals, truncs = c
+            bits0 = sk._random_word(seed, i + off, 0, ctx.lane)
+            bits1 = sk._random_word(seed, i + off, 1, ctx.lane)
+            bits2 = sk._random_word(seed, i + off, 2, ctx.lane)
+            bits3 = sk._random_word(seed, i + off, 3, ctx.lane)
 
-            cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-            pre = gather_rows(cp, bounds(cp))
-            qa = player_q(pre, COL_QA, COL_QA_LO)
-            qb = player_q(pre, COL_QB, COL_QB_LO)
-            retire(qa, qb, pend)
-
-            ga, _ = greedy_and_max(qa)
-            gb, _ = greedy_and_max(qb)
-            ua_e = sk._u16(bits0, 0).astype(jnp.int32)
-            ua_r = sk._u16(bits0, 1).astype(jnp.int32) % N_ACTIONS
-            ub_e = sk._u16(bits3, 0).astype(jnp.int32)
-            ub_r = sk._u16(bits3, 1).astype(jnp.int32) % N_ACTIONS
-            aa = jnp.where(ua_e < eps_int, ua_r, ga)
-            ab = jnp.where(ub_e < eps_int, ub_r, gb)
-
-            qa_cur = jnp.zeros(blk_shape, jnp.float32)
-            qb_cur = jnp.zeros(blk_shape, jnp.float32)
-            for k in range(N_ACTIONS):
-                qa_cur = qa_cur + jnp.where(aa == k, qa[k], 0.0)
-                qb_cur = qb_cur + jnp.where(ab == k, qb[k], 0.0)
-
-            nra, nca, nrb, ncb, npz, goal, r = sk.transition_core(
-                ra, ca, rb, cb, p, aa, ab, bits1, bits2, cfg, q_int)
-            nra, nca, nrb, ncb, npz, t2, trunc = sk.autoreset_core(
-                nra, nca, nrb, ncb, npz, t, goal, bits2, cfg)
-            term = goal | trunc
-            cont = jnp.where(term, 0.0, gamma_f)
-            new_pend = (cp, aa, ab, r.astype(jnp.float32), cont,
-                        qa_cur, qb_cur, jnp.ones(blk_shape, jnp.float32))
-            return (nra, nca, nrb, ncb, npz, t2, new_pend,
-                    rew_acc + jnp.sum(r),
-                    goal_acc + jnp.sum(goal.astype(jnp.int32)),
-                    trunc_acc + jnp.sum(trunc.astype(jnp.int32)))
-
-        init = (ra_ref[sl, :], ca_ref[sl, :], rb_ref[sl, :], cb_ref[sl, :],
-                p_ref[sl, :], t_ref[sl, :],
-                (zi, zi, zi, zf, zf, zf, zf, zf), *carry0)
-        (ra, ca, rb, cb, p, t, pend,
-         rew_acc, goal_acc, trunc_acc) = jax.lax.fori_loop(
-            0, n_steps, step, init)
-
-        cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-        pre = gather_rows(cp, bounds(cp))
-        retire(player_q(pre, COL_QA, COL_QA_LO),
-               player_q(pre, COL_QB, COL_QB_LO), pend)
-
-        ra_ref[sl, :], ca_ref[sl, :] = ra, ca
-        rb_ref[sl, :], cb_ref[sl, :] = rb, cb
-        p_ref[sl, :], t_ref[sl, :] = p, t
-        return (rew_acc, goal_acc, trunc_acc)
-
-    z = jnp.int32(0)
-    rew, goals, truncs = jax.lax.fori_loop(0, n_blocks, block, (z, z, z))
-    ora[:], oca[:] = ra_ref[:], ca_ref[:]
-    orb[:], ocb[:] = rb_ref[:], cb_ref[:]
-    op[:], ot[:] = p_ref[:], t_ref[:]
-    stats_ref[0, 0] = rew
-    stats_ref[0, 1] = goals
-    stats_ref[0, 2] = truncs
-
-
-def _spm_i(cfg: EnvConfig) -> int:
-    """Packed row count (GP_I states per row, both M and acc)."""
-    from ..core import rules
-    from .learner_kernel import _pad_sp
-    return _pad_sp(-(-rules.n_cellpairs(cfg) // GP_I))
-
-
-def _iql_packed_kernel(smem_ref, m_ref, ra_ref, ca_ref, rb_ref, cb_ref,
-                       p_ref, t_ref,
-                       ora, oca, orb, ocb, op, ot, acc_ref, stats_ref,
-                       *, cfg: EnvConfig, n_steps: int, q_int: int,
-                       gamma: float, rb: int):
-    """Packed dual-actor/TD loop: 6 states per M/acc row, residual
-    accumulation (see the PACKED layout comment above)."""
-    from ..core import rules
-    RBk = rb
-    seed = smem_ref[0].astype(jnp.uint32)
-    eps_int = smem_ref[1]
-    off = smem_ref[2]
-    R = ra_ref.shape[0]
-    n_blocks = R // RBk
-    SP = m_ref.shape[0]
-    SLAB = SP if SP <= 2 * SLAB_MAX else SLAB_MAX
-    n_slabs = SP // SLAB
-    blk_shape = (RBk, LANES)
-
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    rows_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 0)
-    cols_iota = jax.lax.broadcasted_iota(jnp.uint32, blk_shape, 1)
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, blk_shape + (LANES,), 2)
-    gamma_f = jnp.float32(gamma)
-
-    gather_rows = make_gather(m_ref, SLAB, n_slabs, RBk)
-    scatter_add = make_scatter(acc_ref, SLAB, n_slabs, RBk, blk_shape)
-
-    def bounds(cp):
-        if n_slabs == 1:
-            return None
-        return jnp.min(cp) // SLAB, jnp.max(cp) // SLAB + 1
-
-    def collapse_qs(pre, g, base, base_lo):
-        """Per-lane group select + hi/lo recombine -> 5 q columns."""
-        qs = []
-        for k in range(N_ACTIONS):
-            s = None
-            for gg in range(GP_I):
-                contrib = jnp.where(
-                    g == gg,
-                    pre[:, gg * GCOLS_I + base + k, :]
-                    + pre[:, gg * GCOLS_I + base_lo + k, :], 0.0)
-                s = contrib if s is None else s + contrib
-            qs.append(s)
-        return qs
-
-    def greedy_and_max(qs):
-        best = jnp.zeros(blk_shape, jnp.int32)
-        bestv = qs[0]
-        for k in range(1, N_ACTIONS):
-            upd = qs[k] > bestv
-            best = jnp.where(upd, k, best)
-            bestv = jnp.maximum(bestv, qs[k])
-        return best, bestv
-
-    def retire(v_a, v_b, pend):
-        cpa, ca_base, cb_base, r, cont, va_prev, vb_prev, valid = pend
-        res_a = r + cont * v_a - va_prev     # Bellman residuals
-        res_b = -r + cont * v_b - vb_prev
-        X = (((c_iota == (ca_base[..., None] + IACC_TD_A)).astype(
-                jnp.float32) * res_a[..., None]
-              + (c_iota == (cb_base[..., None] + IACC_TD_B)).astype(
-                jnp.float32) * res_b[..., None]
-              + (c_iota == (ca_base[..., None] + IACC_CNT_A)).astype(
-                jnp.float32)
-              + (c_iota == (cb_base[..., None] + IACC_CNT_B)).astype(
-                jnp.float32))
-             * valid[..., None]).astype(jnp.bfloat16)
-        scatter_add(cpa, X, bounds(cpa))
-
-    def block(blk, carry0):
-        sl = pl.ds(blk * RBk, RBk)
-        lane = ((blk.astype(jnp.uint32) * RBk + rows_iota)
-                * jnp.uint32(LANES) + cols_iota)
-        zi = jnp.zeros(blk_shape, jnp.int32)
-        zf = jnp.zeros(blk_shape, jnp.float32)
-
-        def step(i, c):
-            (ra, ca, rb, cb, p, t, pend,
-             rew_acc, goal_acc, trunc_acc) = c
-            bits0 = sk._random_word(seed, i + off, 0, lane)
-            bits1 = sk._random_word(seed, i + off, 1, lane)
-            bits2 = sk._random_word(seed, i + off, 2, lane)
-            bits3 = sk._random_word(seed, i + off, 3, lane)
-
-            cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-            cpm = cp // GP_I
-            g = cp % GP_I
-            pre = gather_rows(cpm, bounds(cpm))
-            qa = collapse_qs(pre, g, COL_QA, COL_QA_LO)
-            qb = collapse_qs(pre, g, COL_QB, COL_QB_LO)
-            ga, v_a = greedy_and_max(qa)
-            gb, v_b = greedy_and_max(qb)
+            code = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
+            ga, v_a = greedy_and_max(qrow(code, COL_QA))
+            gb, v_b = greedy_and_max(qrow(code, COL_QB))
             retire(v_a, v_b, pend)
 
-            ua_e = sk._u16(bits0, 0).astype(jnp.int32)
-            ua_r = sk._u16(bits0, 1).astype(jnp.int32) % N_ACTIONS
-            ub_e = sk._u16(bits3, 0).astype(jnp.int32)
-            ub_r = sk._u16(bits3, 1).astype(jnp.int32) % N_ACTIONS
+            ua_e = sk._u16(bits0, 0)
+            ua_r = sk._u16(bits0, 1) % N_ACTIONS
+            ub_e = sk._u16(bits3, 0)
+            ub_r = sk._u16(bits3, 1) % N_ACTIONS
             aa = jnp.where(ua_e < eps_int, ua_r, ga)
             ab = jnp.where(ub_e < eps_int, ub_r, gb)
 
@@ -316,197 +98,61 @@ def _iql_packed_kernel(smem_ref, m_ref, ra_ref, ca_ref, rb_ref, cb_ref,
                 ra, ca, rb, cb, p, aa, ab, bits1, bits2, cfg, q_int)
             nra, nca, nrb, ncb, npz, t2, trunc = sk.autoreset_core(
                 nra, nca, nrb, ncb, npz, t, goal, bits2, cfg)
-            term = goal | trunc
-            cont = jnp.where(term, 0.0, gamma_f)
-            abase = g * GCOLS_I
-            new_pend = (cp // GP_I, abase + aa, abase + ab,
+            cont = jnp.where(goal | trunc, 0.0, gamma_f)
+            new_pend = (code * N_ACTIONS + aa, b_base + code * N_ACTIONS + ab,
                         r.astype(jnp.float32), cont, v_a, v_b,
-                        jnp.ones(blk_shape, jnp.float32))
+                        jnp.ones_like(ra))
             return (nra, nca, nrb, ncb, npz, t2, new_pend,
-                    rew_acc + jnp.sum(r),
-                    goal_acc + jnp.sum(goal.astype(jnp.int32)),
-                    trunc_acc + jnp.sum(trunc.astype(jnp.int32)))
+                    rew + r, goals + goal.astype(jnp.int32),
+                    truncs + trunc.astype(jnp.int32))
 
-        init = (ra_ref[sl, :], ca_ref[sl, :], rb_ref[sl, :], cb_ref[sl, :],
-                p_ref[sl, :], t_ref[sl, :],
-                (zi, zi, zi, zf, zf, zf, zf, zf), *carry0)
-        (ra, ca, rb, cb, p, t, pend,
-         rew_acc, goal_acc, trunc_acc) = jax.lax.fori_loop(
-            0, n_steps, step, init)
+        zi = jnp.zeros_like(lanes[0])
+        zf = jnp.zeros(zi.shape, jnp.float32)
+        init = tuple(lanes[:6]) + ((zi, zi, zf, zf, zf, zf, zi), zi, zi, zi)
+        ra, ca, rb, cb, p, t, pend, rew, goals, truncs = ctx.fori(
+            n_steps, step, init)
+        code = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
+        retire(greedy_and_max(qrow(code, COL_QA))[1],
+               greedy_and_max(qrow(code, COL_QB))[1], pend)
+        return ra, ca, rb, cb, p, t, rew, goals, truncs
 
-        cp = rules.cellpair_encode(jnp, ra, ca, rb, cb, p, cfg)
-        cpm = cp // GP_I
-        g = cp % GP_I
-        pre = gather_rows(cpm, bounds(cpm))
-        _, v_a = greedy_and_max(collapse_qs(pre, g, COL_QA, COL_QA_LO))
-        _, v_b = greedy_and_max(collapse_qs(pre, g, COL_QB, COL_QB_LO))
-        retire(v_a, v_b, pend)
-
-        ra_ref[sl, :], ca_ref[sl, :] = ra, ca
-        rb_ref[sl, :], cb_ref[sl, :] = rb, cb
-        p_ref[sl, :], t_ref[sl, :] = p, t
-        return (rew_acc, goal_acc, trunc_acc)
-
-    z = jnp.int32(0)
-    rew, goals, truncs = jax.lax.fori_loop(0, n_blocks, block, (z, z, z))
-    ora[:], oca[:] = ra_ref[:], ca_ref[:]
-    orb[:], ocb[:] = rb_ref[:], cb_ref[:]
-    op[:], ot[:] = p_ref[:], t_ref[:]
-    stats_ref[0, 0] = rew
-    stats_ref[0, 1] = goals
-    stats_ref[0, 2] = truncs
+    return body
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "batch", "n_steps",
-                                             "gamma", "interpret"))
-def iql_packed_chunk(cfg: EnvConfig, seed, eps_int, m_packed, state_fields,
-                     batch: int, n_steps: int, gamma: float = 0.99,
-                     step_offset=0, interpret: bool = False):
-    """Packed-layout fused IQL chunk.  ``m_packed`` [_spm_i(cfg), 128]
-    bfloat16 from `pack_iql_m2`; returns (new_fields, acc [_spm_i, 128]
-    f32, stats[3]) — decode with `unpack_iql_acc2` (residual sums +
-    counts; complete TDs with cnt * (maxq - q))."""
-    assert n_steps > 0
-    assert batch % LANES == 0, f"batch must be a multiple of {LANES}"
-    shape = (batch // LANES, LANES)
-    SP = _spm_i(cfg)
-    # rb capped at 16: the dual-player retire materializes FOUR
-    # [rb, 128, 128] f32 one-hots (td+cnt per player) where the minimax
-    # kernel builds two — rb=32 overflows the 16 MB scoped-VMEM stack.
-    rb = next(r for r in range(min(16, shape[0]), 0, -1)
-              if shape[0] % r == 0)
-    vmem_mb = SP * LANES * (2 + 4) / 2**20
-    if vmem_mb > 14:
-        raise ValueError(
-            f"grid too large for the fused learner kernel: packed tables "
-            f"need ~{vmem_mb:.0f} MB of VMEM ({SP} rows); "
-            f"use agents.learners.iql_train (HBM tables) instead")
-    q_int = int(round(cfg.slip_prob * 65536))
-    kernel = functools.partial(
-        _iql_packed_kernel, cfg=cfg, n_steps=n_steps, q_int=q_int,
-        gamma=gamma, rb=rb)
-    out_shapes = ([jax.ShapeDtypeStruct(shape, jnp.int32)] * 6 +
-                  [jax.ShapeDtypeStruct((SP, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((1, 4), jnp.int32)])
-    smem_in = jnp.stack([jnp.asarray(seed, jnp.int32),
-                         jnp.asarray(eps_int, jnp.int32),
-                         jnp.asarray(step_offset, jnp.int32)])
-    outs = pl.pallas_call(
-        kernel,
-        out_shape=tuple(out_shapes),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)] +
-                 [pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-        out_specs=tuple([pl.BlockSpec(memory_space=pltpu.VMEM)] * 7 +
-                        [pl.BlockSpec(memory_space=pltpu.SMEM)]),
-        input_output_aliases={2 + i: i for i in range(6)},
-        interpret=interpret,
-    )(smem_in, m_packed, *state_fields)
-    *fields, acc, stats = outs
-    return tuple(fields), acc, (stats[0, 0], stats[0, 1], stats[0, 2])
-
-
-def pack_iql_m2(cfg: EnvConfig, q_a, q_b) -> jnp.ndarray:
-    """Pack both players' Q tables [nS, 5] into the PACKED M
-    [_spm_i(cfg), 128] bfloat16 (GP_I states per row, double-bf16
-    hi/lo)."""
-    SP = _spm_i(cfg)
-    codes = jnp.asarray(_cell_rows(cfg))
-    idx = (codes // GP_I) * LANES + (codes % GP_I) * GCOLS_I
-    flat = jnp.zeros(SP * LANES, jnp.float32)
-    for q, c_hi, c_lo in ((q_a, COL_QA, COL_QA_LO),
-                          (q_b, COL_QB, COL_QB_LO)):
-        q = jnp.asarray(q, jnp.float32)
-        hi = q.astype(jnp.bfloat16).astype(jnp.float32)
-        for k in range(N_ACTIONS):
-            flat = flat.at[idx + c_hi + k].set(hi[:, k])
-            flat = flat.at[idx + c_lo + k].set(q[:, k] - hi[:, k])
-    return flat.reshape(SP, LANES).astype(jnp.bfloat16)
-
-
-def unpack_iql_acc2(cfg: EnvConfig, acc):
-    """acc -> (sum_res_a, cnt_a, sum_res_b, cnt_b), each [nS, 5].  The
-    per-visit TD is residual + (maxq - q[s, a]) with maxq/q frozen
-    in-chunk, so sum_td = sum_res + cnt * (maxq[:, None] - q)."""
-    codes = jnp.asarray(_cell_rows(cfg))
-    idx = (codes // GP_I) * LANES + (codes % GP_I) * GCOLS_I
-    flat = acc.reshape(-1)
-    cols = jnp.arange(N_ACTIONS)[None, :]
-    return (flat[idx[:, None] + IACC_TD_A + cols],
-            flat[idx[:, None] + IACC_CNT_A + cols],
-            flat[idx[:, None] + IACC_TD_B + cols],
-            flat[idx[:, None] + IACC_CNT_B + cols])
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "batch", "n_steps",
-                                             "gamma", "interpret"))
-def iql_chunk(cfg: EnvConfig, seed, eps_int, m_packed, state_fields,
-              batch: int, n_steps: int, gamma: float = 0.99,
-              step_offset=0, interpret: bool = False):
-    """Run one fused IQL chunk.  ``m_packed`` [spc(cfg), 128] bfloat16
-    (pack_iql_m); ``state_fields`` = 6 int32 [batch/128, 128] planes;
-    ``eps_int`` = round(eps * 65536) (traced).  Returns (new_fields,
-    acc [spc, 128] f32, stats[3])."""
-    assert n_steps > 0
-    assert batch % LANES == 0, f"batch must be a multiple of {LANES}"
-    shape = (batch // LANES, LANES)
-    SP = spc(cfg)
-    cap = RB if SP <= 2 * SLAB_MAX else RB_SLABBED
-    rb = next(r for r in range(min(cap, shape[0]), 0, -1)
-              if shape[0] % r == 0)
-    vmem_mb = SP * LANES * (2 + 4) / 2**20
-    if vmem_mb > 14:
-        raise ValueError(
-            f"grid too large for the fused learner kernel: packed tables "
-            f"need ~{vmem_mb:.0f} MB of VMEM ({SP} codes); "
-            f"use agents.learners.iql_train (HBM tables) instead")
-    q_int = int(round(cfg.slip_prob * 65536))
-    kernel = functools.partial(
-        _iql_kernel, cfg=cfg, n_steps=n_steps, q_int=q_int, gamma=gamma,
-        rb=rb)
-    out_shapes = ([jax.ShapeDtypeStruct(shape, jnp.int32)] * 6 +
-                  [jax.ShapeDtypeStruct((SP, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((1, 4), jnp.int32)])
-    smem_in = jnp.stack([jnp.asarray(seed, jnp.int32),
-                         jnp.asarray(eps_int, jnp.int32),
-                         jnp.asarray(step_offset, jnp.int32)])
-    outs = pl.pallas_call(
-        kernel,
-        out_shape=tuple(out_shapes),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)] +
-                 [pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-        out_specs=tuple([pl.BlockSpec(memory_space=pltpu.VMEM)] * 7 +
-                        [pl.BlockSpec(memory_space=pltpu.SMEM)]),
-        input_output_aliases={2 + i: i for i in range(6)},
-        interpret=interpret,
-    )(smem_in, m_packed, *state_fields)
-    *fields, acc, stats = outs
-    return tuple(fields), acc, (stats[0, 0], stats[0, 1], stats[0, 2])
+@ll.static_args("cfg", "batch", "n_steps", "gamma")
+def iql_chunk(cfg: EnvConfig, seed, eps_int, m, state_fields, batch: int,
+              n_steps: int, gamma: float = 0.99, step_offset=0,
+              backend: str = "triton", block: int = ll.BLOCK, interpret: bool = False):
+    """Run one fused IQL chunk.  ``m`` from `pack_iql_m`;
+    ``state_fields`` = 6 int32 [batch/128, 128] planes; ``eps_int`` =
+    round(eps * 65536) (traced).  Returns (new_fields, acc, stats[3]);
+    decode acc with `unpack_iql_acc`."""
+    return run_chunk(_iql_body(cfg, n_steps, gamma), state_fields, seed,
+                     batch, n_steps, 6, m, 2 * n_codes(cfg) * N_ACTIONS,
+                     scalars=(eps_int, step_offset), name="iql_chunk",
+                     backend=backend, block=block,
+                     interpret=interpret)
 
 
 def pack_iql_m(cfg: EnvConfig, q_a, q_b) -> jnp.ndarray:
-    """Pack both players' Q tables [nS, 5] into M [spc, 128] bfloat16
-    (double-bf16 hi/lo columns)."""
-    SP = spc(cfg)
+    """Pack both players' Q tables [nS, 5] into M, f32 [n_codes *
+    M_COLS]."""
     rows = jnp.asarray(_cell_rows(cfg))
-    m = jnp.zeros((SP, LANES), jnp.float32)
-    for q, c_hi, c_lo in ((q_a, COL_QA, COL_QA_LO),
-                          (q_b, COL_QB, COL_QB_LO)):
-        q = jnp.asarray(q, jnp.float32)
-        hi = q.astype(jnp.bfloat16).astype(jnp.float32)
-        m = m.at[rows, c_hi:c_hi + 5].set(hi)
-        m = m.at[rows, c_lo:c_lo + 5].set(q - hi)
-    return m.astype(jnp.bfloat16)
+    m = jnp.zeros((n_codes(cfg), M_COLS), jnp.float32)
+    m = m.at[rows, COL_QA:COL_QA + 5].set(jnp.asarray(q_a, jnp.float32))
+    m = m.at[rows, COL_QB:COL_QB + 5].set(jnp.asarray(q_b, jnp.float32))
+    return m.reshape(-1)
 
 
 def unpack_iql_acc(cfg: EnvConfig, acc):
-    """acc -> (sum_td_a, cnt_a, sum_td_b, cnt_b), each [nS, 5]."""
+    """acc -> (sum_res_a, cnt_a, sum_res_b, cnt_b), each [nS, 5].  The
+    per-visit TD is residual + (maxq - q[s, a]) with maxq/q frozen
+    in-chunk, so sum_td = sum_res + cnt * (maxq[:, None] - q)."""
     rows = jnp.asarray(_cell_rows(cfg))
-    return (acc[rows, ACC_TD_A:ACC_TD_A + 5],
-            acc[rows, ACC_CNT_A:ACC_CNT_A + 5],
-            acc[rows, ACC_TD_B:ACC_TD_B + 5],
-            acc[rows, ACC_CNT_B:ACC_CNT_B + 5])
+    cells = rows[:, None] * N_ACTIONS + jnp.arange(N_ACTIONS)[None, :]
+    res_a, cnt_a = decode_acc(acc, cells)
+    res_b, cnt_b = decode_acc(acc, cells + n_codes(cfg) * N_ACTIONS)
+    return res_a, cnt_a, res_b, cnt_b
 
 
 def init_iql_state_fields(cfg: EnvConfig, batch: int):
@@ -520,18 +166,14 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
                     eps_min: float = 0.0, eps_halflife: int = 0,
                     lr_anneal_start: int = 0, lr_anneal_tau: float = 0.0,
                     lr_anneal_pow: float = 1.0, seed: int = 0,
-                    interpret: bool = False, init=None, mesh=None,
-                    start_chunk: int = 0, fields_init=None,
-                    return_state: bool = False,
-                    packed: bool | None = None,
+                    backend: str = "triton", interpret: bool = False,
+                    init=None, mesh=None, start_chunk: int = 0,
+                    fields_init=None, return_state: bool = False,
                     chunks_per_dispatch: int = 1):
     """Chunked fused independent-Q self-play.  Returns (q_a, q_b,
     stats_history).  ``init`` optionally warm-starts (q_a, q_b).
-
-    ``packed`` selects the packed kernel layout (default None = True;
-    6x fewer gather/scatter matmul rows, Bellman-residual accumulation
-    — see the PACKED layout comment); packed=False keeps the legacy
-    layout.  Both step bit-identical trajectories for equal Q contents.
+    ``backend``/``interpret`` pick the chunk launcher as in
+    ops/learner_kernel.fused_minimax_train.
 
     ``mesh`` (a jax.sharding.Mesh with an 'env' axis) DP-shards the lane
     batch: per-device fused chunks with psum'd accumulators
@@ -544,14 +186,12 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
     ``init=(resume['q_a'], resume['q_b'])``,
     ``fields_init=resume['fields']``,
     ``start_chunk=resume['next_chunk']`` continues bit-identically to an
-    uninterrupted run.  The resume dict records ``packed``; restore
-    under the same layout.  ``stats_history`` cadence differs by
+    uninterrupted run.  ``stats_history`` cadence differs by
     dispatch mode: the per-chunk loop records every 16th chunk (plus
     the last); grouped dispatches record every chunk."""
     from ..core import tables
     nS = tables.build_statespace(cfg).nS
-    if packed is None:
-        packed = True
+    launch = dict(backend=backend, interpret=interpret)
     if init is None:
         q_a = jnp.zeros((nS, N_ACTIONS), jnp.float32)
         q_b = jnp.zeros((nS, N_ACTIONS), jnp.float32)
@@ -566,34 +206,26 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
         from jax.sharding import NamedSharding, PartitionSpec
         from ..parallel.mesh import sharded_iql_chunk_fn
         sharded = sharded_iql_chunk_fn(cfg, mesh, batch, chunk_len,
-                                       gamma=gamma, interpret=interpret,
-                                       packed=packed)
+                                       gamma=gamma, **launch)
         sh = NamedSharding(mesh, PartitionSpec("env", None))
         fields = tuple(jax.device_put(f, sh) for f in fields)
 
         def chunk(seed_k, eps_int, m, fields, step_offset):
             return sharded(seed_k, eps_int, m, fields, step_offset)
     else:
-        chunk_f = iql_packed_chunk if packed else iql_chunk
-
         def chunk(seed_k, eps_int, m, fields, step_offset):
-            return chunk_f(cfg, seed_k, eps_int, m, fields, batch,
-                           chunk_len, gamma=gamma,
-                           step_offset=step_offset, interpret=interpret)
-
-    pack_f = pack_iql_m2 if packed else pack_iql_m
+            return iql_chunk(cfg, seed_k, eps_int, m, fields, batch,
+                             chunk_len, gamma=gamma,
+                             step_offset=step_offset, **launch)
 
     @jax.jit
     def between(q_a, q_b, acc, lr_now):
-        if packed:
-            res_a, cnt_a, res_b, cnt_b = unpack_iql_acc2(cfg, acc)
-            sum_a = res_a + cnt_a * (q_a.max(-1)[:, None] - q_a)
-            sum_b = res_b + cnt_b * (q_b.max(-1)[:, None] - q_b)
-        else:
-            sum_a, cnt_a, sum_b, cnt_b = unpack_iql_acc(cfg, acc)
+        res_a, cnt_a, res_b, cnt_b = unpack_iql_acc(cfg, acc)
+        sum_a = res_a + cnt_a * (q_a.max(-1)[:, None] - q_a)
+        sum_b = res_b + cnt_b * (q_b.max(-1)[:, None] - q_b)
         q_a = q_a + lr_now * sum_a / jnp.maximum(cnt_a, 1.0)
         q_b = q_b + lr_now * sum_b / jnp.maximum(cnt_b, 1.0)
-        return q_a, q_b, pack_f(cfg, q_a, q_b)
+        return q_a, q_b, pack_iql_m(cfg, q_a, q_b)
 
     def lr_at(k):
         d = lr
@@ -609,7 +241,7 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
         return jnp.maximum(d, eps_min) if isinstance(k, jax.Array) \
             else max(d, eps_min)
 
-    m = pack_f(cfg, q_a, q_b)
+    m = pack_iql_m(cfg, q_a, q_b)
     history = []
     end_chunk = start_chunk + n_chunks
     if chunks_per_dispatch > 1:
@@ -658,6 +290,5 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
     if return_state:
         return q_a, q_b, history, {"q_a": q_a, "q_b": q_b,
                                    "fields": fields,
-                                   "next_chunk": end_chunk,
-                                   "packed": packed}
+                                   "next_chunk": end_chunk}
     return q_a, q_b, history

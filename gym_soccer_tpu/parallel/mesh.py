@@ -9,7 +9,8 @@ do not apply; see docs/PARALLELISM.md).  Design:
 * `EnvState` leaves sharded on their leading (batch) dim — env shards are
   embarrassingly parallel, XLA inserts zero collectives for stepping;
 * learner Q-tables replicated; their per-step update deltas all-reduced
-  with `psum` inside `shard_map`, riding ICI within a slice;
+  with `psum` inside `shard_map` (NCCL over NVLink between the GPUs of a
+  host);
 * per-instance keys (fold_in of global instance id) make every env's
   stream placement-invariant: the same instance behaves identically on
   1 device or N, on any host (§7.3.7).
@@ -34,9 +35,10 @@ from ..core import batch
 def distributed_init(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize the multi-host JAX runtime (no-op for single process).
-    Replaces the reference's (absent) NCCL/MPI layer with JAX's
-    distributed runtime over ICI/DCN."""
+    """Initialize the multi-process JAX runtime (no-op for a single
+    process).  Replaces the reference's (absent) NCCL/MPI layer with JAX's
+    distributed runtime; the coordinator address, process count and id
+    must be given explicitly."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -100,7 +102,7 @@ def _env_specs(axis: str):
 def sharded_iql_train_fn(cfg: EnvConfig, lcfg, mesh: Mesh, n_steps: int,
                          axis: str = "env"):
     """Data-parallel fused IQL training: env batch sharded over the mesh,
-    Q-tables replicated, per-step deltas all-reduced with psum over ICI."""
+    Q-tables replicated, per-step deltas all-reduced with psum."""
     from ..agents import learners
 
     specs = learners.IQLState(q_a=P(), q_b=P(), env=_env_specs(axis),
@@ -145,8 +147,8 @@ def sharded_solve_fn(mesh: Mesh, iters: int, axis: str = "env"):
     state's 5x5 payoff matrix (nS x iters work, independent per state).
     Replicating it wastes (N-1)/N of the mesh during the solve; here each
     device solves nS/N states and the jit-level consumer gathers the
-    strategy tables back (one all_gather of ~nS*11 floats per chunk,
-    riding ICI).  Per-state arithmetic is untouched, so results are
+    strategy tables back (one all_gather of ~nS*11 floats per chunk).
+    Per-state arithmetic is untouched, so results are
     BIT-IDENTICAL to the replicated solve — the honest analogue of
     tensor/model parallelism for a tabular learner (docs/PARALLELISM.md).
 
@@ -173,134 +175,109 @@ def sharded_solve_fn(mesh: Mesh, iters: int, axis: str = "env"):
     return fn
 
 
+def _check_batch(batch: int, n_steps: int, n_dev: int) -> int:
+    from ..ops.learner_kernel import check_visits
+    assert batch % (n_dev * 128) == 0, \
+        f"batch must be a multiple of {n_dev * 128} on this mesh"
+    # the psum'd int32 accumulator holds the WHOLE batch's visits
+    check_visits(batch, n_steps)
+    return batch // n_dev
+
+
+def _shard_seed(seed, axis: str):
+    ax = jax.lax.axis_index(axis).astype(jnp.int32)
+    return jnp.asarray(seed, jnp.int32) ^ (ax * jnp.int32(0x61C88647))
+
+
+def _reduce(fields, acc, stats, axis: str):
+    return (fields, jax.lax.psum(acc, axis),
+            tuple(jax.lax.psum(s, axis) for s in stats))
+
+
 def sharded_learner_chunk_fn(cfg, mesh: Mesh, batch: int, n_steps: int,
-                             gamma: float = 0.99, interpret: bool = False,
-                             axis: str = "env", packed: bool = False):
+                             gamma: float = 0.99, axis: str = "env",
+                             **launch):
     """Data-parallel FUSED learner chunks (ops/learner_kernel): the lane
-    batch is sharded over the mesh, each device runs its own pallas chunk
-    (per-shard PRNG seed decorrelated by axis index), and the TD/count
-    accumulators are all-reduced with psum over ICI — so the replicated
-    between-chunk update (count-normalized Q backup + game re-solve) sees
-    the WHOLE batch's statistics, exactly like a single-device run over
-    the combined batch.  ``cfg`` may be a tuple (multigrid mode; pass the
-    matching ``planes`` argument from init_state_fields).
+    batch is sharded over the mesh, each device runs its own chunk
+    (per-shard PRNG seed decorrelated by axis index), and the integer
+    TD/count accumulators are all-reduced with psum -- exact, so the
+    replicated between-chunk update (count-normalized Q backup + game
+    re-solve) sees the WHOLE batch's statistics, exactly like a
+    single-device run over the combined batch.  ``cfg`` may be a tuple
+    (multigrid mode; pass the matching ``planes`` argument from
+    init_state_fields).  ``launch`` (backend, interpret) goes to the
+    chunk.
 
     Returns a jitted ``fn(seed, m, fields [, planes]) -> (fields, acc,
     stats)`` where fields are sharded [batch/128, 128] planes and acc is
     replicated."""
     from ..ops import learner_kernel as lk
     n_dev = mesh.shape[axis]
-    assert batch % (n_dev * 128) == 0, \
-        f"batch must be a multiple of {n_dev * 128} on this mesh"
-    bpd = batch // n_dev
+    bpd = _check_batch(batch, n_steps, n_dev)
     fspec = P(axis, None)
-    is_mg = isinstance(cfg, tuple)
 
-    def _shard_seed(seed):
-        ax = jax.lax.axis_index(axis).astype(jnp.int32)
-        return jnp.asarray(seed, jnp.int32) ^ (ax * jnp.int32(0x61C88647))
-
-    def _reduce(fields, acc, stats):
-        return (fields, jax.lax.psum(acc, axis),
-                tuple(jax.lax.psum(s, axis) for s in stats))
-
-    if is_mg:
-        mg_chunk = (lk.multigrid_packed_learner_chunk if packed
-                    else lk.multigrid_learner_chunk)
-
+    if isinstance(cfg, tuple):
         def local(seed, m, fields, planes):
-            out = mg_chunk(
-                cfg, _shard_seed(seed), m, planes, fields, bpd, n_steps,
-                gamma=gamma, interpret=interpret)
-            return _reduce(*out)
+            out = lk.multigrid_learner_chunk(
+                cfg, _shard_seed(seed, axis), m, planes, fields, bpd,
+                n_steps, gamma=gamma, **launch)
+            return _reduce(*out, axis)
 
-        fn = jax.shard_map(
-            local, mesh=mesh,
-            in_specs=(P(), P(), (fspec,) * 6, (fspec,) * 6),
-            out_specs=((fspec,) * 6, P(), (P(),) * 3),
-            check_vma=False)  # pallas out_shapes carry no vma
+        in_specs = (P(), P(), (fspec,) * 6, (fspec,) * 6)
     else:
-        sg_chunk = lk.packed_learner_chunk if packed else lk.learner_chunk
-
         def local(seed, m, fields):
-            out = sg_chunk(
-                cfg, _shard_seed(seed), m, fields, bpd, n_steps,
-                gamma=gamma, interpret=interpret)
-            return _reduce(*out)
+            out = lk.learner_chunk(cfg, _shard_seed(seed, axis), m, fields,
+                                   bpd, n_steps, gamma=gamma, **launch)
+            return _reduce(*out, axis)
 
-        fn = jax.shard_map(
-            local, mesh=mesh,
-            in_specs=(P(), P(), (fspec,) * 6),
-            out_specs=((fspec,) * 6, P(), (P(),) * 3),
-            check_vma=False)
+        in_specs = (P(), P(), (fspec,) * 6)
+    fn = jax.shard_map(
+        local, mesh=mesh, in_specs=in_specs,
+        out_specs=((fspec,) * 6, P(), (P(),) * 3),
+        check_vma=False)  # pallas out_shapes carry no vma
+    return jax.jit(fn)
+
+
+def _sharded_eps_chunk_fn(chunk_f, n_fields, cfg, mesh, batch, n_steps,
+                          gamma, axis, launch):
+    n_dev = mesh.shape[axis]
+    bpd = _check_batch(batch, n_steps, n_dev)
+    fspec = P(axis, None)
+
+    def local(seed, eps_int, m, fields, step_offset):
+        out = chunk_f(cfg, _shard_seed(seed, axis), eps_int, m, fields, bpd,
+                      n_steps, gamma=gamma, step_offset=step_offset,
+                      **launch)
+        return _reduce(*out, axis)
+
+    fn = jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(P(), P(), P(), (fspec,) * n_fields, P()),
+        out_specs=((fspec,) * n_fields, P(), (P(),) * 3),
+        check_vma=False)
     return jax.jit(fn)
 
 
 def sharded_altq_chunk_fn(cfg: EnvConfig, mesh: Mesh, batch: int,
                           n_steps: int, gamma: float = 0.99,
-                          interpret: bool = False, axis: str = "env",
-                          packed: bool = False):
+                          axis: str = "env", **launch):
     """Data-parallel fused ALTERNATING-turn learner chunks
-    (ops/altq_kernel) — same layout as sharded_learner_chunk_fn."""
+    (ops/altq_kernel) -- same layout as sharded_learner_chunk_fn, with 7
+    state planes."""
     from ..ops import altq_kernel as ak
-    n_dev = mesh.shape[axis]
-    assert batch % (n_dev * 128) == 0, \
-        f"batch must be a multiple of {n_dev * 128} on this mesh"
-    bpd = batch // n_dev
-    fspec = P(axis, None)
-    chunk_f = ak.altq_packed_chunk if packed else ak.altq_chunk
-
-    def local(seed, eps_int, m, fields, step_offset):
-        ax = jax.lax.axis_index(axis).astype(jnp.int32)
-        sseed = (jnp.asarray(seed, jnp.int32)
-                 ^ (ax * jnp.int32(0x61C88647)))
-        fields, acc, stats = chunk_f(
-            cfg, sseed, eps_int, m, fields, bpd, n_steps, gamma=gamma,
-            step_offset=step_offset, interpret=interpret)
-        acc = jax.lax.psum(acc, axis)
-        stats = tuple(jax.lax.psum(s, axis) for s in stats)
-        return fields, acc, stats
-
-    fn = jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(), P(), P(), (fspec,) * 7, P()),
-        out_specs=((fspec,) * 7, P(), (P(),) * 3),
-        check_vma=False)
-    return jax.jit(fn)
+    return _sharded_eps_chunk_fn(ak.altq_chunk, 7, cfg, mesh, batch,
+                                 n_steps, gamma, axis, launch)
 
 
 def sharded_iql_chunk_fn(cfg: EnvConfig, mesh: Mesh, batch: int,
                          n_steps: int, gamma: float = 0.99,
-                         interpret: bool = False, axis: str = "env",
-                         packed: bool = False):
+                         axis: str = "env", **launch):
     """Data-parallel fused INDEPENDENT-Q learner chunks (ops/iql_kernel)
-    — same layout as sharded_learner_chunk_fn (6 state planes, dual-table
-    accumulator psum'd)."""
+    -- same layout as sharded_learner_chunk_fn (6 state planes,
+    dual-table accumulator psum'd)."""
     from ..ops import iql_kernel as ik
-    n_dev = mesh.shape[axis]
-    assert batch % (n_dev * 128) == 0, \
-        f"batch must be a multiple of {n_dev * 128} on this mesh"
-    bpd = batch // n_dev
-    fspec = P(axis, None)
-    chunk_f = ik.iql_packed_chunk if packed else ik.iql_chunk
-
-    def local(seed, eps_int, m, fields, step_offset):
-        ax = jax.lax.axis_index(axis).astype(jnp.int32)
-        sseed = (jnp.asarray(seed, jnp.int32)
-                 ^ (ax * jnp.int32(0x61C88647)))
-        fields, acc, stats = chunk_f(
-            cfg, sseed, eps_int, m, fields, bpd, n_steps, gamma=gamma,
-            step_offset=step_offset, interpret=interpret)
-        acc = jax.lax.psum(acc, axis)
-        stats = tuple(jax.lax.psum(s, axis) for s in stats)
-        return fields, acc, stats
-
-    fn = jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(), P(), P(), (fspec,) * 6, P()),
-        out_specs=((fspec,) * 6, P(), (P(),) * 3),
-        check_vma=False)
-    return jax.jit(fn)
+    return _sharded_eps_chunk_fn(ik.iql_chunk, 6, cfg, mesh, batch,
+                                 n_steps, gamma, axis, launch)
 
 
 def sharded_altq_train_fn(cfg: EnvConfig, lcfg, mesh: Mesh, n_steps: int,

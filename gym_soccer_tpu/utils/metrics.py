@@ -14,8 +14,7 @@ batched rollout chunks:
   soccer_simultaneous_env.py:598-613) are derived properties.
 
 Consumers: envs/vector_env.SoccerVectorEnv accumulates these per step on
-host, examples/train_minimax_tpu.py and tools/bench_all.py aggregate
-device chunks.
+host, examples/train_minimax.py aggregates device chunks.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Alternating-turn environment: turn-taking semantics, steal rule, goal
 detection, slip statistics, batched-kernel/single-env agreement, and the
 tabular layer (table builder + turn-based minimax VI + win-rate
-contracts, VERDICT round-1 item 10)."""
+contracts)."""
 import jax
 import numpy as np
 import pytest

@@ -48,10 +48,10 @@ def test_alternating_demo():
 
 def test_train_best_response_example():
     """--best-response trains the reference's single-agent shape (frozen
-    random opponent) end-to-end on the fused kernel and reports the gap
+    random opponent) end-to-end on the fused learner and reports the gap
     to the exact best-response value."""
-    ev = _events(_run("examples/train_minimax_tpu.py",
-                      "--best-response", "player_a", "--interpret",
+    ev = _events(_run("examples/train_minimax.py",
+                      "--best-response", "player_a", "--backend", "xla",
                       "--steps", "1280", "--envs", "512"))
     fin = ev["finished_best_response"]
     assert fin["side"] == "player_a"
@@ -63,15 +63,15 @@ def test_train_best_response_example():
 def test_train_fused_checkpoint_resume(tmp_path):
     """The flagship fused trainer checkpoints and resumes exactly:
     a second invocation with a larger --steps picks up at the saved
-    chunk (interpret-mode kernels, tiny batch)."""
+    chunk (XLA twin, tiny batch)."""
     ck = str(tmp_path / "fused_ck.npz")
-    ev1 = _events(_run("examples/train_minimax_tpu.py", "--fused",
-                       "--interpret", "--steps", "128", "--envs", "256",
+    ev1 = _events(_run("examples/train_minimax.py", "--fused",
+                       "--backend", "xla", "--steps", "128", "--envs", "256",
                        "--ckpt", ck))
     assert ev1["checkpointed"]["chunk"] == 2
     assert "resumed_fused" not in ev1
-    ev2 = _events(_run("examples/train_minimax_tpu.py", "--fused",
-                       "--interpret", "--steps", "256", "--envs", "256",
+    ev2 = _events(_run("examples/train_minimax.py", "--fused",
+                       "--backend", "xla", "--steps", "256", "--envs", "256",
                        "--ckpt", ck))
     assert ev2["resumed_fused"]["chunk"] == 2
     # The resumed segment reuses the FIRST segment's anneal anchor
@@ -81,8 +81,8 @@ def test_train_fused_checkpoint_resume(tmp_path):
     assert ev2["checkpointed"]["chunk"] == 4
     assert ev2["finished_fused"]["env_steps"] == 2 * 64 * 256
     # Re-running with the same --steps is a no-op, not an extra chunk.
-    ev3 = _events(_run("examples/train_minimax_tpu.py", "--fused",
-                       "--interpret", "--steps", "256", "--envs", "256",
+    ev3 = _events(_run("examples/train_minimax.py", "--fused",
+                       "--backend", "xla", "--steps", "256", "--envs", "256",
                        "--ckpt", ck))
     assert ev3["already_complete"]["chunk"] == 4
     assert "finished_fused" not in ev3

@@ -1,4 +1,4 @@
-"""Train -> deploy interop: TPU learner outputs drop into the
+"""Train -> deploy interop: on-device learner outputs drop into the
 reference-style API surfaces.
 
 The reference persists policies as pickled dicts (policies.py:17-27) and

@@ -1,6 +1,7 @@
-"""Fused pallas independent-Q kernel (interpret mode): packing, exact
-dual-player TD/count accounting, greedy semantics, training progress
-(ops/iql_kernel)."""
+"""Fused independent-Q chunks (ops/iql_kernel): packing, exact
+dual-player TD/count accounting and greedy semantics on the XLA twin,
+training progress, and the Triton kernel (interpret mode) stepping the
+twin's trajectories."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,14 +18,11 @@ def test_iql_pack_unpack_roundtrip():
     rng = np.random.RandomState(0)
     q_a = jnp.asarray(rng.uniform(-1, 1, (NS, 5)).astype(np.float32))
     q_b = jnp.asarray(rng.uniform(-1, 1, (NS, 5)).astype(np.float32))
-    m = np.asarray(ik.pack_iql_m(CFG, q_a, q_b), np.float32)
+    m = np.asarray(ik.pack_iql_m(CFG, q_a, q_b)).reshape(-1, ik.M_COLS)
     rows = ik._cell_rows(CFG)
-    got_a = m[rows, ik.COL_QA:ik.COL_QA + 5] + \
-        m[rows, ik.COL_QA_LO:ik.COL_QA_LO + 5]
-    got_b = m[rows, ik.COL_QB:ik.COL_QB + 5] + \
-        m[rows, ik.COL_QB_LO:ik.COL_QB_LO + 5]
-    assert np.allclose(got_a, np.asarray(q_a), atol=2e-5, rtol=2e-5)
-    assert np.allclose(got_b, np.asarray(q_b), atol=2e-5, rtol=2e-5)
+    # f32 tables hold both players' Q exactly
+    assert np.array_equal(m[rows, ik.COL_QA:ik.COL_QA + 5], np.asarray(q_a))
+    assert np.array_equal(m[rows, ik.COL_QB:ik.COL_QB + 5], np.asarray(q_b))
 
 
 def test_iql_chunk_accumulates_both_players_exactly():
@@ -32,66 +30,51 @@ def test_iql_chunk_accumulates_both_players_exactly():
     m = ik.pack_iql_m(CFG, jnp.zeros((NS, 5)), jnp.zeros((NS, 5)))
     fields = ik.init_iql_state_fields(CFG, B)
     fields2, acc, stats = ik.iql_chunk(CFG, 0, int(0.3 * 65536), m,
-                                       fields, B, T, interpret=True)
+                                       fields, B, T, backend="xla")
     sum_a, cnt_a, sum_b, cnt_b = (np.asarray(x)
                                   for x in ik.unpack_iql_acc(CFG, acc))
     # each player updates exactly one cell per env per step
     assert cnt_a.sum() == B * T and cnt_b.sum() == B * T
     # with q=0: td_a == r and td_b == -r, so the sums are exact negations
     rew = int(np.asarray(stats[0]))
-    assert abs(float(sum_a.sum()) - rew) < 1.0
-    assert abs(float(sum_b.sum()) + rew) < 1.0
+    assert float(sum_a.sum()) == rew
+    assert float(sum_b.sum()) == -rew
     assert int(np.asarray(stats[1])) > 0, "random-ish play must score"
     for f, hi in zip(fields2[:4], (CFG.H, CFG.W, CFG.H, CFG.W)):
         arr = np.asarray(f)
         assert (arr >= 0).all() and (arr < hi).all()
 
 
-def test_iql_packed_chunk_matches_unpacked():
-    """The PACKED IQL kernel (6 states per M/acc row, residual
-    accumulation) must step bit-identical trajectories to the unpacked
-    kernel for equal Q contents with identical visit counts; with q == 0
-    the residual IS the td, bit for bit."""
-    B, T = 1024, 16
+@pytest.mark.parametrize("block", [128, 256])
+def test_iql_packed_chunk_matches_unpacked(block):
+    """The Triton IQL chunk (interpret mode) steps the twin's
+    trajectories bit for bit for equal Q contents (fields and stats; the
+    accumulator is checked on the twin)."""
+    B, T = 640, 16
     rng = np.random.RandomState(2)
     q_a = jnp.asarray(rng.uniform(-1, 1, (NS, 5)).astype(np.float32))
     q_b = jnp.asarray(rng.uniform(-1, 1, (NS, 5)).astype(np.float32))
     fields = ik.init_iql_state_fields(CFG, B)
     eps = int(0.3 * 65536)
-    f1, acc1, st1 = ik.iql_chunk(CFG, 9, eps, ik.pack_iql_m(CFG, q_a, q_b),
-                                 fields, B, T, interpret=True)
-    f2, acc2, st2 = ik.iql_packed_chunk(
-        CFG, 9, eps, ik.pack_iql_m2(CFG, q_a, q_b), fields, B, T,
-        interpret=True)
+    m = ik.pack_iql_m(CFG, q_a, q_b)
+    f1, _, st1 = ik.iql_chunk(CFG, 9, eps, m, fields, B, T, interpret=True,
+                              block=block)
+    f2, acc, st2 = ik.iql_chunk(CFG, 9, eps, m, fields, B, T,
+                                backend="xla")
     for a, b in zip(f1, f2):
         assert np.array_equal(np.asarray(a), np.asarray(b)), \
-            "packed and unpacked IQL kernels diverged in trajectory"
-    assert all(int(np.asarray(x)) == int(np.asarray(y))
-               for x, y in zip(st1, st2))
-    _, ca1, _, cb1 = (np.asarray(x) for x in ik.unpack_iql_acc(CFG, acc1))
-    ra2, ca2, rb2, cb2 = (np.asarray(x)
-                          for x in ik.unpack_iql_acc2(CFG, acc2))
-    assert np.array_equal(ca1, ca2) and np.array_equal(cb1, cb2)
-    assert int(ca2.sum()) == B * T
-
-    # q == 0: residual == td, bit for bit
-    z = jnp.zeros((NS, 5), jnp.float32)
-    _, acc1z, _ = ik.iql_chunk(CFG, 9, eps, ik.pack_iql_m(CFG, z, z),
-                               fields, B, T, interpret=True)
-    _, acc2z, _ = ik.iql_packed_chunk(CFG, 9, eps, ik.pack_iql_m2(CFG, z, z),
-                                      fields, B, T, interpret=True)
-    a1 = [np.asarray(x) for x in ik.unpack_iql_acc(CFG, acc1z)]
-    a2 = [np.asarray(x) for x in ik.unpack_iql_acc2(CFG, acc2z)]
-    for x, y in zip(a1, a2):
-        np.testing.assert_allclose(x, y, rtol=0, atol=0)
+            "Triton and twin IQL chunks diverged in trajectory"
+    assert [int(x) for x in st1] == [int(x) for x in st2]
+    _, ca, _, cb = (np.asarray(x) for x in ik.unpack_iql_acc(CFG, acc))
+    assert ca.sum() == B * T and cb.sum() == B * T
 
 
 def test_fused_iql_training_learns_packed():
-    """fused_iql_train's default (packed) path trains: both tables move,
-    dual accounting stays exact."""
+    """fused_iql_train's grouped-dispatch path trains: both tables
+    move."""
     q_a, q_b, hist = ik.fused_iql_train(
         CFG, batch=1024, n_chunks=20, chunk_len=16, lr=0.5, eps=0.3,
-        interpret=True)
+        backend="xla", chunks_per_dispatch=4)
     assert float(jnp.abs(q_a).max()) > 0.01
     assert float(jnp.abs(q_b).max()) > 0.01
     assert sum(h[1] for h in hist) > 0
@@ -102,7 +85,7 @@ def test_iql_chunks_per_dispatch_grouping_invariant():
     group size (in-graph f32 schedules; includes a remainder segment)."""
     kw = dict(batch=512, n_chunks=7, chunk_len=4, lr=0.6, eps=0.35,
               eps_halflife=64, eps_min=0.1, lr_anneal_start=2,
-              lr_anneal_tau=4.0, seed=5, interpret=True)
+              lr_anneal_tau=4.0, seed=5, backend="xla")
     qa1, qb1, h1 = ik.fused_iql_train(CFG, chunks_per_dispatch=7, **kw)
     qa2, qb2, h2 = ik.fused_iql_train(CFG, chunks_per_dispatch=3, **kw)
     assert np.array_equal(np.asarray(qa1), np.asarray(qa2))
@@ -117,7 +100,7 @@ def test_iql_eps_zero_is_greedy():
     m = ik.pack_iql_m(CFG, jnp.zeros((NS, 5)), jnp.zeros((NS, 5)))
     fields = ik.init_iql_state_fields(CFG, B)
     _, acc, stats = ik.iql_chunk(CFG, 3, 0, m, fields, B, T,
-                                 interpret=True)
+                                 backend="xla")
     assert int(np.asarray(stats[1])) == 0
     _, cnt_a, _, cnt_b = (np.asarray(x) for x in ik.unpack_iql_acc(CFG, acc))
     assert cnt_a[:, 0].sum() == B * T and (cnt_a[:, 1:] == 0).all()
@@ -132,7 +115,7 @@ def test_iql_players_explore_independently():
     m = ik.pack_iql_m(CFG, jnp.zeros((NS, 5)), jnp.zeros((NS, 5)))
     fields = ik.init_iql_state_fields(CFG, B)
     _, acc, _ = ik.iql_chunk(CFG, 5, 65536, m, fields, B, T,
-                             interpret=True)
+                             backend="xla")
     _, cnt_a, _, cnt_b = (np.asarray(x) for x in ik.unpack_iql_acc(CFG, acc))
     # both marginals roughly uniform over the 5 actions
     for cnt in (cnt_a, cnt_b):
@@ -143,7 +126,7 @@ def test_iql_players_explore_independently():
 def test_fused_iql_training_learns():
     q_a, q_b, hist = ik.fused_iql_train(
         CFG, batch=1024, n_chunks=30, chunk_len=16, lr=0.4, eps=0.3,
-        interpret=True)
+        backend="xla")
     q_a, q_b = np.asarray(q_a), np.asarray(q_b)
     assert np.abs(q_a).max() > 0.05 and np.abs(q_b).max() > 0.05
     assert np.abs(q_a).max() <= 1.05 and np.abs(q_b).max() <= 1.05
@@ -157,11 +140,19 @@ def test_fused_iql_training_learns():
         assert corr < 0.5, corr
 
 
-def test_iql_vmem_guard():
-    big = EnvConfig(width=15, height=10, slip_prob=0.2)
-    with pytest.raises(ValueError, match="iql_train"):
-        ik.iql_chunk(big, 0, 0, None, None, batch=1024, n_steps=1,
-                     interpret=True)
+def test_iql_chunk_step_offset_changes_stream():
+    """step_offset keys the counter PRNG: the same chunk at another
+    absolute step draws other actions and visits other cells."""
+    B, T = 512, 8
+    m = ik.pack_iql_m(CFG, jnp.zeros((NS, 5)), jnp.zeros((NS, 5)))
+    fields = ik.init_iql_state_fields(CFG, B)
+    eps = int(0.9 * 65536)
+    _, acc1, _ = ik.iql_chunk(CFG, 3, eps, m, fields, B, T, backend="xla")
+    _, acc2, _ = ik.iql_chunk(CFG, 3, eps, m, fields, B, T, step_offset=T,
+                              backend="xla")
+    _, acc3, _ = ik.iql_chunk(CFG, 3, eps, m, fields, B, T, backend="xla")
+    assert np.array_equal(np.asarray(acc1), np.asarray(acc3))
+    assert not np.array_equal(np.asarray(acc1), np.asarray(acc2))
 
 
 def test_fused_iql_warm_start_lr_zero():
@@ -170,7 +161,7 @@ def test_fused_iql_warm_start_lr_zero():
     q0b = jnp.asarray(rng.uniform(-0.5, 0.5, (NS, 5)), jnp.float32)
     q_a, q_b, _ = ik.fused_iql_train(CFG, batch=512, n_chunks=1,
                                      chunk_len=4, lr=0.0, eps=0.5,
-                                     interpret=True, init=(q0a, q0b))
+                                     backend="xla", init=(q0a, q0b))
     assert np.array_equal(np.asarray(q_a), np.asarray(q0a))
     assert np.array_equal(np.asarray(q_b), np.asarray(q0b))
 
@@ -184,7 +175,7 @@ def test_fused_iql_exact_resume():
     from gym_soccer_tpu.utils import checkpoint as ckpt
     kw = dict(batch=256, chunk_len=4, lr=0.4, eps=0.4, eps_halflife=24,
               lr_anneal_start=2, lr_anneal_tau=4.0, seed=13,
-              interpret=True)
+              backend="xla")
     qac, qbc, _, res_c = ik.fused_iql_train(CFG, n_chunks=6,
                                             return_state=True, **kw)
     _, _, _, r1 = ik.fused_iql_train(CFG, n_chunks=3, return_state=True,

@@ -218,3 +218,62 @@ def test_alternating_sharded_training_matches_single_device():
     sN, _ = jax.block_until_ready(train(st))
     np.testing.assert_allclose(np.asarray(s1.q), np.asarray(sN.q),
                                rtol=0, atol=1e-5)
+
+
+def _rm_plus_f64(M, iters):
+    """The solver's Regret Matching+ iteration in float64 numpy."""
+    nA = M.shape[-1]
+    rx = np.zeros(M.shape[:-1])
+    ry = np.zeros(M.shape[:-1])
+    sx = np.zeros_like(rx)
+    sy = np.zeros_like(ry)
+
+    def normalize(r):
+        s = r.sum(-1, keepdims=True)
+        return np.where(s > 0, r / np.maximum(s, 1e-30), 1.0 / nA)
+
+    for t in range(iters):
+        x, y = normalize(rx), normalize(ry)
+        my = np.einsum('...ij,...j->...i', M, y)
+        xm = np.einsum('...i,...ij->...j', x, M)
+        vx = np.einsum('...i,...i->...', x, my)[..., None]
+        rx = np.maximum(rx + (my - vx), 0.0)
+        ry = np.maximum(ry + (vx - xm), 0.0)
+        sx, sy = sx + (t + 1) * x, sy + (t + 1) * y
+    x = sx / sx.sum(-1, keepdims=True)
+    y = sy / sy.sum(-1, keepdims=True)
+    return np.einsum('...i,...ij,...j->...', x, M, y), x, y
+
+
+def test_matrix_game_solver_matches_float64():
+    """The f32 solve (explicit multiply-adds, so no TF32 on a GPU) tracks
+    the same RM+ iteration run in float64 numpy.  Tolerance: RM+'s
+    truncation of regrets at zero is a branch, so f32 rounding can send a
+    game down another path; each run's value is then still within its
+    own duality gap of the exact value, so |v32 - v64| <= gap32 + gap64.
+    Where no branch flips, the runs agree to f32 rounding: the median
+    difference stays below 1e-5, two orders under the 1e-3 level
+    exploitability is read at (TF32 would put most games near 1e-3).
+    Weak duality against an exact LP checks the brackets themselves."""
+    from scipy.optimize import linprog
+    rng = np.random.RandomState(11)
+    M = rng.uniform(-1, 1, (64, 5, 5))
+    v, x, y = jax.jit(lambda m: learners.solve_matrix_games(m, iters=400))(
+        jnp.asarray(M, jnp.float32))
+    v64, x64, y64 = _rm_plus_f64(M, 400)
+    v, x, y = (np.asarray(a, np.float64) for a in (v, x, y))
+
+    def gap(x, y):
+        return (np.einsum('kij,kj->ki', M, y).max(-1)
+                - np.einsum('ki,kij->kj', x, M).min(-1))
+    diff = np.abs(v - v64)
+    assert (diff <= gap(x, y) + gap(x64, y64) + 1e-5).all()
+    assert np.median(diff) < 1e-5, np.median(diff)
+    for k in range(8):   # exact value: max_x min_j (x^T M)_j by LP
+        A = M[k]
+        res = linprog(c=np.r_[np.zeros(5), -1.0],
+                      A_ub=np.c_[-A.T, np.ones(5)], b_ub=np.zeros(5),
+                      A_eq=np.r_[np.ones(5), 0.0][None], b_eq=[1.0],
+                      bounds=[(0, None)] * 5 + [(None, None)])
+        lo, hi = (x[k] @ A).min(), (A @ y[k]).max()
+        assert lo - 1e-6 <= -res.fun <= hi + 1e-6, (k, lo, -res.fun, hi)

@@ -81,8 +81,7 @@ def test_rewards_are_goal_consistent(final_and_traj):
 
 def test_absorbing_goal_pays_zero_without_autoreset():
     """With autoreset=False a terminated lane self-loops and never pays the
-    goal reward again (reference :235-240 'starting absorbed => r=0';
-    round-1 VERDICT weak #2)."""
+    goal reward again (reference :235-240 'starting absorbed => r=0')."""
     cfgs = [EnvConfig(5, 4, 0.0), EnvConfig(7, 5, 0.0)]
     st = jax.jit(lambda k: multigrid.init(cfgs, k, 8))(jax.random.key(0))
     # Inject every lane into ITS OWN variant's right-goal terminal state:
@@ -204,7 +203,7 @@ def test_single_variant_learners_bitmatch_batch_engine():
 
 
 def test_mixed_training_slices_match_single_grid():
-    """Statistical contract for mixed-batch learning (round-1 verdict #3):
+    """Statistical contract for mixed-batch learning:
 
     (a) two copies of the SAME variant in one mixture learn statistically
         matching Q/V slices (same game, disjoint lanes & table blocks);

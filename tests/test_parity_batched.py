@@ -2,8 +2,8 @@
 threshold compares, per-instance MT19937 streams) must reproduce the
 executed reference's trajectories exactly, per batch lane — the
 BASELINE.json north-star claim.  The kernel is pure int32/uint32/float32,
-so the SAME code is exact on TPU (no float64 hardware needed); here it runs
-on the CPU backend.
+so the SAME code is exact on any device (no float64 arithmetic needed);
+here it runs on the CPU backend.
 """
 import json
 import os

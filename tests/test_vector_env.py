@@ -193,8 +193,8 @@ def test_per_env_seed_list():
 
 
 def test_max_steps_truncation_horizon():
-    """A non-default max_steps truncates end-to-end (VERDICT contract
-    edge: the registration horizon must actually apply)."""
+    """A non-default max_steps truncates end-to-end (the registration
+    horizon must actually apply)."""
     env = SoccerVectorEnv(8, width=5, height=4, slip_prob=0.0, max_steps=7)
     env.reset(seed=0)
     noop = {"player_a": np.zeros(8, np.int64),

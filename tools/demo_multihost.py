@@ -11,7 +11,7 @@ This tool proves both claims with real process boundaries, not simulation:
    minimax-Q training step (the same path as __graft_entry__.dryrun_multichip);
 2. distributed — TWO processes, 4 virtual devices each, connected through
    ``jax.distributed.initialize`` (gloo collectives across process
-   boundaries — the CPU stand-in for ICI/DCN), running the identical
+   boundaries — the CPU stand-in for NCCL between GPUs), running the identical
    global computation on the same global mesh axis;
 3. the parent asserts the two TD summaries agree (placement invariance
    across process topologies).
