@@ -11,7 +11,7 @@ card, and checks every lane-loop kernel against its plain XLA twin:
 4. learner chunks (minimax 5x4 and 11x7, IQL, alternating Q, best
    response, a 5x4+11x7 mixture): kernel and twin step identical
    trajectories with identical visit counts and residual sums within
-   2^-16 per visit; two kernel runs are bit-identical; a 1+1-chunk resume
+   2^-20 per visit; two kernel runs are bit-identical; a 1+1-chunk resume
    equals 2 uninterrupted chunks;
 5. the 5x4 --converge recipe reaches exploitability <= 0.010;
 6. golden parity: the reference fixtures through core/parity's device
@@ -21,9 +21,9 @@ The last line is {"ok": true, "device": {...}}; any failed phase makes the
 exit status non-zero.  Without a GPU it exits with status 2 and prints
 no result.
 
-``--four`` runs only the data-parallel path on four GPUs: the sharded
-fused trainer against its four single-device shard chunks, and the
-state-sharded solve against the replicated one.
+``--four`` runs only the data-parallel path on four GPUs, at 65,536
+lanes per card: the sharded fused trainer against its four single-device
+shard chunks, and the state-sharded solve against the replicated one.
 
 Run: python chip_smoke.py [--four] [--only PHASE,...]
 """
@@ -38,7 +38,7 @@ import numpy as np
 PHASES = ("compile", "rollouts", "learners", "converge", "golden")
 ROLL_B, ROLL_T = 262144, 1000
 CHUNK_B, CHUNK_T = 65536, 32
-RES_TOL = 2.0 ** -16          # per-visit residual tolerance (see learners)
+RES_TOL = 2.0 ** -20          # per-visit residual tolerance (see _compare_chunk)
 
 
 def _eq(a, b):
@@ -127,10 +127,12 @@ def _chunk_inputs(cfg, batch, seed=3):
 
 def _compare_chunk(name, run, decode, ctx):
     """Kernel vs twin on one chunk: fields and stats exact, counts exact,
-    residual sums within RES_TOL per visit (the two compilers may contract
-    r + gamma*v' - v into an FMA differently, which moves a visit's
-    rounding to the 2^-16 grid by at most one step); two kernel runs
-    bit-identical."""
+    residual sums within RES_TOL per visit; two kernel runs bit-identical.
+    The two compilers may contract r + gamma*v' - v into an FMA
+    differently: each f32 rounding of that |delta| <= 3 sum is <= 2^-23,
+    so the two residuals differ by < 2^-21 before they are rounded to
+    the 2^-24 grid, and by < 2^-20 after; the decoded f32 sums add at
+    most 2^-24 relative rounding each."""
     from gym_soccer_tpu.utils.profiling import time_window
     k1, k2, tw = run("triton"), run("triton"), run("xla")
     _check(_eq(k1, k2), f"{name}: two kernel runs differ")
@@ -142,7 +144,8 @@ def _compare_chunk(name, run, decode, ctx):
         _check(np.array_equal(np.asarray(ck), np.asarray(ct)),
                f"{name}: visit counts differ from the twin")
         diff = np.abs(np.asarray(sk_) - np.asarray(st))
-        _check((diff <= np.asarray(ck) * RES_TOL + 1e-6).all(),
+        _check((diff <= np.asarray(ck) * RES_TOL
+                + np.abs(np.asarray(st)) * 2.0 ** -23).all(),
                f"{name}: residual sums beyond tolerance")
         worst = max(worst, float((diff / np.maximum(np.asarray(ck), 1))
                                  .max()))
@@ -341,7 +344,7 @@ def phase_four(ctx):
     _check(len(jax.devices()) >= 4, "--four needs four GPUs")
     mesh = pmesh.env_mesh(4)
     c54 = _cfgs()[0]
-    B, T = 2 * CHUNK_B, CHUNK_T        # 2^22 visits: the accumulator's cap
+    B, T = 4 * CHUNK_B, CHUNK_T        # 65,536 lanes per card
     m, fields = _chunk_inputs(c54, B)
     fn = pmesh.sharded_learner_chunk_fn(c54, mesh, B, T)
     out_fields, acc, stats = fn(3, m, fields)

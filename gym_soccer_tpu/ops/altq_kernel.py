@@ -197,7 +197,7 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
                      eps_min: float = 0.0, eps_halflife: int = 0,
                      lr_anneal_start: int = 0, lr_anneal_tau: float = 0.0,
                      lr_anneal_pow: float = 1.0, seed: int = 0,
-                     backend: str = "triton", interpret: bool = False,
+                     backend: str = "triton",
                      init=None, mesh=None, start_chunk: int = 0,
                      fields_init=None, return_state: bool = False,
                      chunks_per_dispatch: int = 1):
@@ -213,8 +213,8 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     ``init`` optionally warm-starts q (an [nS_alt, 5] array).  ``mesh``
     (a jax.sharding.Mesh with an 'env' axis) DP-shards the lane batch:
     per-device fused chunks with psum'd accumulators
-    (parallel/mesh.sharded_altq_chunk_fn).  ``backend``/``interpret``
-    pick the chunk launcher as in ops/learner_kernel.fused_minimax_train.
+    (parallel/mesh.sharded_altq_chunk_fn).  ``backend`` picks the chunk
+    launcher as in ops/learner_kernel.fused_minimax_train.
 
     ``start_chunk``/``fields_init``/``return_state`` give EXACT
     checkpoint/resume (see ops/learner_kernel.fused_minimax_train): with
@@ -230,7 +230,7 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     (``chunks_per_dispatch`` > 1) record every chunk."""
     from ..envs.soccer_alternating_env import build_alt_tables
     nS = build_alt_tables(cfg).nS
-    launch = dict(backend=backend, interpret=interpret)
+    launch = dict(backend=backend)
     q = (jnp.zeros((nS, N_ACTIONS), jnp.float32) if init is None
          else jnp.asarray(init, jnp.float32))
     assert q.shape == (nS, N_ACTIONS)

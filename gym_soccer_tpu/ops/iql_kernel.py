@@ -166,13 +166,13 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
                     eps_min: float = 0.0, eps_halflife: int = 0,
                     lr_anneal_start: int = 0, lr_anneal_tau: float = 0.0,
                     lr_anneal_pow: float = 1.0, seed: int = 0,
-                    backend: str = "triton", interpret: bool = False,
+                    backend: str = "triton",
                     init=None, mesh=None, start_chunk: int = 0,
                     fields_init=None, return_state: bool = False,
                     chunks_per_dispatch: int = 1):
     """Chunked fused independent-Q self-play.  Returns (q_a, q_b,
     stats_history).  ``init`` optionally warm-starts (q_a, q_b).
-    ``backend``/``interpret`` pick the chunk launcher as in
+    ``backend`` picks the chunk launcher as in
     ops/learner_kernel.fused_minimax_train.
 
     ``mesh`` (a jax.sharding.Mesh with an 'env' axis) DP-shards the lane
@@ -191,7 +191,7 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
     the last); grouped dispatches record every chunk."""
     from ..core import tables
     nS = tables.build_statespace(cfg).nS
-    launch = dict(backend=backend, interpret=interpret)
+    launch = dict(backend=backend)
     if init is None:
         q_a = jnp.zeros((nS, N_ACTIONS), jnp.float32)
         q_b = jnp.zeros((nS, N_ACTIONS), jnp.float32)

@@ -35,6 +35,12 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
+# JAX versions on which `_fix_int_atomic_add` was checked on the card
+# (tests/test_pallas_kernel.py::test_int32_atomic_add_exact).
+ATOMIC_FIX_JAX = ("0.9.0",)
+_atomic_fixed = False
+
+
 def _fix_int_atomic_add() -> None:
     """Make Pallas-Triton's vector atomic_add on integers an integer add.
 
@@ -43,7 +49,22 @@ def _fix_int_atomic_add() -> None:
     int32 vector atomic_add adds float bit patterns and the counts come
     out as garbage on the card.  This re-registers the rule for integer
     ADD only, emitting ``tt.atomic_rmw add``; every other case goes to
-    JAX's own rule."""
+    JAX's own rule.
+
+    It patches JAX's process-global lowering table through private
+    names, so it runs on the first Triton launch (never on import, nor
+    for the twin or interpret mode), and only on a JAX in
+    ATOMIC_FIX_JAX: any other version fails here, loudly, until the
+    card test above passes on it and the version is added."""
+    global _atomic_fixed
+    if _atomic_fixed:
+        return
+    if jax.__version__ not in ATOMIC_FIX_JAX:
+        raise RuntimeError(
+            f"the integer atomic_add fix was checked on JAX "
+            f"{ATOMIC_FIX_JAX}, not {jax.__version__}: run "
+            f"tests/test_pallas_kernel.py::test_int32_atomic_add_exact on "
+            f"a GPU and add the version to lane_loop.ATOMIC_FIX_JAX")
     from jax._src.pallas import primitives as pp
     from jax._src.pallas.triton import lowering as tl
     from jax._src.lib.triton import dialect as tt
@@ -68,9 +89,8 @@ def _fix_int_atomic_add() -> None:
         return tl._atomic_rmw(tt.RMWOp.ADD, ptr, val, mask=mask)
 
     tl.register_lowering(pp.atomic_rmw_p)(rule)
+    _atomic_fixed = True
 
-
-_fix_int_atomic_add()
 
 BACKENDS = ("triton", "xla")
 BLOCK = 128        # lanes per Triton program (one lane per thread)
@@ -177,6 +197,8 @@ def run(body, *, batch: int, lanes, scalars, tables=(), acc_sizes=(),
 
     if block & (block - 1):
         raise ValueError(f"block={block} must be a power of two")
+    if acc_sizes and not interpret:
+        _fix_int_atomic_add()
     padded = -(-batch // block) * block
     if padded != batch:
         # edge-replicated padding lanes hold valid states (gathers stay in

@@ -176,11 +176,15 @@ def sharded_solve_fn(mesh: Mesh, iters: int, axis: str = "env"):
 
 
 def _check_batch(batch: int, n_steps: int, n_dev: int) -> int:
-    from ..ops.learner_kernel import check_visits
+    from ..ops.learner_kernel import MAX_SHARDS, check_visits
     assert batch % (n_dev * 128) == 0, \
         f"batch must be a multiple of {n_dev * 128} on this mesh"
-    # the psum'd int32 accumulator holds the WHOLE batch's visits
-    check_visits(batch, n_steps)
+    # each device's kernel words hold its own shard's visits; the folded
+    # words of up to MAX_SHARDS devices psum without overflow
+    if n_dev > MAX_SHARDS:
+        raise ValueError(f"{n_dev} devices exceed {MAX_SHARDS}, the most "
+                         f"whose folded accumulators psum exactly")
+    check_visits(batch // n_dev, n_steps)
     return batch // n_dev
 
 
@@ -205,8 +209,7 @@ def sharded_learner_chunk_fn(cfg, mesh: Mesh, batch: int, n_steps: int,
     re-solve) sees the WHOLE batch's statistics, exactly like a
     single-device run over the combined batch.  ``cfg`` may be a tuple
     (multigrid mode; pass the matching ``planes`` argument from
-    init_state_fields).  ``launch`` (backend, interpret) goes to the
-    chunk.
+    init_state_fields).  ``launch`` (backend, block) goes to the chunk.
 
     Returns a jitted ``fn(seed, m, fields [, planes]) -> (fields, acc,
     stats)`` where fields are sharded [batch/128, 128] planes and acc is

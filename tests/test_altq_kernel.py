@@ -32,11 +32,11 @@ def test_alt_pack_unpack_roundtrip():
     # unpack_alt_acc inverts the acc layout: cell (row*2 + turn)*5 + a
     acc = np.zeros((2 * ak.n_codes(CFG) * 5, 4), np.int32)
     cells = (rows * 2 + turn) * 5
-    acc[cells[turn == 0], 0] = 3        # hi word: 3 * 2^9 / 2^16
+    acc[cells[turn == 0], 1] = 3 << 21  # folded frac word: 3 * 2^21 / 2^24
     acc[cells[turn == 1] + 4, 2] = 7    # count of action 4
     td, cnt = (np.asarray(x) for x in ak.unpack_alt_acc(
         CFG, jnp.asarray(acc.reshape(-1))))
-    assert (td[turn == 0, 0] == 3 * 512 / 65536).all()
+    assert (td[turn == 0, 0] == 3 / 8).all()
     assert (td[turn == 1] == 0).all()
     assert (cnt[turn == 1, 4] == 7).all() and cnt.sum() == 7 * (turn == 1).sum()
 
@@ -146,9 +146,12 @@ def test_altq_backend_validation():
     with pytest.raises(ValueError, match="backend"):
         ak.fused_altq_train(CFG, batch=256, n_chunks=1, chunk_len=2,
                             backend="mosaic")
+    from gym_soccer_tpu.envs.soccer_alternating_env import build_alt_tables
+    m = ak.pack_alt_m(CFG, jnp.zeros((build_alt_tables(CFG).nS, 5)))
+    fields = ak.init_alt_state_fields(CFG, 256)
     with pytest.raises(ValueError, match="interpret"):
-        ak.fused_altq_train(CFG, batch=256, n_chunks=1, chunk_len=2,
-                            backend="xla", interpret=True)
+        ak.altq_chunk(CFG, 0, 0, m, fields, 256, 2, backend="xla",
+                      interpret=True)
 
 
 @pytest.mark.slow

@@ -29,12 +29,13 @@ def test_pack_unpack_roundtrip():
     # compact rows are unique and in range
     assert len(np.unique(rows)) == nS
     assert rows.min() >= 0 and rows.max() < lk.n_codes(CFG)
-    # accumulator decode: (hi * 2^9 + lo) / 2^16 and the count word
+    # folded accumulator decode: whole + frac / 2^24 (frac's excess
+    # carried into whole) and the count word
     acc = np.zeros((lk.n_codes(CFG) * lk.NJ, lk.ACC_WORDS), np.int32)
     cell = rows[5] * lk.NJ + 7
-    acc[cell] = (-3, 100, 9, 0)
+    acc[cell] = (-3, (1 << 24) + 100, 9, 0)
     sum_res, cnt = lk.unpack_acc(CFG, jnp.asarray(acc.reshape(-1)))
-    assert float(sum_res[5, 1, 2]) == (-3 * 512 + 100) / 65536
+    assert float(sum_res[5, 1, 2]) == -2 + 100 / 2 ** 24
     assert float(cnt[5, 1, 2]) == 9 and float(np.asarray(cnt).sum()) == 9
 
 
@@ -274,13 +275,40 @@ def test_twin_accumulator_is_order_independent():
     a = acc_of(np.arange(4096))
     b = acc_of(rng.permutation(4096))
     assert np.array_equal(a, b)
-    sums, cnt = lk.decode_acc(jnp.asarray(a), jnp.arange(50))
+    sums, cnt = lk.decode_acc(lk.fold_acc(jnp.asarray(a)), jnp.arange(50))
     want = np.zeros(50)
     np.add.at(want, np.asarray(cells), np.asarray(deltas, np.float64))
-    # per-visit rounding to 2^-16: |error| <= 2^-17 per visit
+    # per-visit rounding to 2^-24: |error| <= 2^-25 per visit, plus the
+    # f32 rounding of the decoded sum
     assert (np.abs(np.asarray(sums) - want)
-            <= np.asarray(cnt) * 2.0 ** -17 + 1e-6).all()
+            <= np.asarray(cnt) * 2.0 ** -25 + np.abs(want) * 2.0 ** -24).all()
     assert int(np.asarray(cnt).sum()) == 4096
+
+
+@pytest.mark.parametrize("q", [-lk.FIX_MAX, lk.FIX_MAX, -1, 1, 12345678])
+def test_fold_acc_exact_at_visit_cap(q):
+    """MAX_VISITS visits of one cell, each adding the fixed-point residual
+    q (the clamp's extremes included), fit every kernel word; folding is
+    exact, and the folded words of MAX_SHARDS devices add (psum) without
+    overflow to the exact total."""
+    mask = (1 << lk.LIMB_BITS) - 1
+    limbs = np.asarray([q >> (2 * lk.LIMB_BITS), (q >> lk.LIMB_BITS) & mask,
+                        q & mask, 1], np.int64)
+    words = limbs * lk.MAX_VISITS
+    assert (np.abs(words) < 2 ** 31).all()
+    folded = np.asarray(lk.fold_acc(jnp.asarray(words.astype(np.int32))),
+                        np.int64)
+    whole, frac, cnt, pad = folded
+    assert 0 <= frac < 2 ** lk.FIX_BITS and pad == 0
+    assert whole * 2 ** lk.FIX_BITS + frac == q * lk.MAX_VISITS
+    assert cnt == lk.MAX_VISITS
+    total = folded * lk.MAX_SHARDS
+    assert (np.abs(total) < 2 ** 31).all()
+    sums, cnts = lk.decode_acc(jnp.asarray(total.astype(np.int32)),
+                               jnp.arange(1))
+    exact = q * lk.MAX_VISITS * lk.MAX_SHARDS / 2 ** lk.FIX_BITS
+    assert abs(float(sums[0]) - exact) <= abs(exact) * 2.0 ** -24
+    assert float(cnts[0]) == lk.MAX_VISITS * lk.MAX_SHARDS
 
 
 def test_chunks_per_dispatch_matches_single_dispatch():

@@ -5,6 +5,7 @@ shard PRNG streams must be decorrelated (XLA twin on CPU)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from gym_soccer_tpu.config import EnvConfig
 from gym_soccer_tpu.core import tables
@@ -50,6 +51,20 @@ def test_sharded_minimax_chunk_equals_manual_shards():
     assert np.array_equal(np.asarray(acc), np.asarray(acc_sum))
     _, cnt = lk.unpack_acc(CFG, acc)
     assert float(np.asarray(cnt).sum()) == B * T
+
+
+def test_sharded_visit_guard_is_per_device():
+    """The accumulator's visit cap holds per device: a mesh takes its
+    device count times one device's largest chunk, and refuses more."""
+    mesh = pmesh.env_mesh()
+    n_dev = mesh.devices.size
+    T = 32
+    bpd = lk.MAX_VISITS // T
+    pmesh.sharded_learner_chunk_fn(CFG, mesh, n_dev * bpd, T,
+                                   backend="xla")
+    with pytest.raises(ValueError, match="exceeds"):
+        pmesh.sharded_learner_chunk_fn(CFG, mesh, n_dev * bpd * 2, T,
+                                       backend="xla")
 
 
 def test_sharded_minimax_shards_are_decorrelated():
